@@ -71,51 +71,23 @@ MUTANTS = [
         ["tests/test_doctests.py::test_doctests[pysgmcmc_tpu.utils.numeric]"],
     ),
     (
-        # paired-dot kernels: unpack the WRONG diagonal block for odd
-        # chains (reads the zero off-diagonal block instead) -- the
-        # bitwise paired-vs-unpaired parity pin must catch it
-        "paired-unpair-wrong-block",
-        "pysgmcmc_tpu/ops/fused_step.py",
-        "return jnp.stack([m[:, 0:s, 0:s], m[:, s:2 * s, s:2 * s]],\n"
-        "                     axis=1).reshape(c, s, s)",
-        "return jnp.stack([m[:, 0:s, 0:s], m[:, 0:s, s:2 * s]],\n"
-        "                     axis=1).reshape(c, s, s)",
-        ["tests/ops/test_fused_step.py::"
-         "test_multistep_paired_matches_unpaired[sghmc]"],
+        # packed drivers: flip the eps^4 correction in the SGHMC noise
+        # variance -- the packed-vs-pytree parity pin must catch it
+        "packed-sghmc-noise-sign",
+        "pysgmcmc_tpu/parallel/packed.py",
+        "2.0 * eps_scaled**2 * mdecay * minv - eps_scaled**4, 1e-16))",
+        "2.0 * eps_scaled**2 * mdecay * minv + eps_scaled**4, 1e-16))",
+        ["tests/parallel/test_packed.py::"
+         "test_lanes_update_matches_pytree_step_bitwise[sghmc]"],
     ),
     (
-        # paired-dot kernels: swap the two chains' w4 gradient halves
-        # (post-ba55367 form: chain b's half arrives via the p_move
-        # selection dot as g_w4b, chain a's is the 0:s lane slice)
-        "paired-gw4-swapped-halves",
-        "pysgmcmc_tpu/ops/fused_step.py",
-        "g_w4 = jnp.stack([g_w4p[:, 0:s], g_w4b], axis=1).reshape(C, s)",
-        "g_w4 = jnp.stack([g_w4b, g_w4p[:, 0:s]], axis=1).reshape(C, s)",
-        ["tests/ops/test_fused_step.py::"
-         "test_multistep_paired_matches_unpaired[sghmc]"],
-    ),
-    (
-        # multi-step kernels: in-kernel minibatch window selection
-        # (_select_window_bf) gathers the NEXT window instead of the
-        # drawn one -- the k-step-vs-pytree parity pin must catch the
-        # wrong training data
-        "multistep-window-offby-one",
-        "pysgmcmc_tpu/ops/fused_step.py",
-        "    onehot = (win_iota == widx).astype(jnp.float32)\n",
-        "    onehot = (win_iota == widx + 1).astype(jnp.float32)\n",
-        ["tests/ops/test_fused_step.py::"
-         "test_multistep_single_window_selects_the_data"],
-    ),
-    (
-        # multi-step burn-in kernel: flip the eps^4 correction in the
-        # in-kernel SGHMC noise variance (_sghmc_burnin_step_math) --
-        # the exact-math pin against the pytree sampler must catch it
-        "burnin-kernel-noise-sign",
-        "pysgmcmc_tpu/ops/fused_step.py",
-        "2.0 * eps_scaled ** 2 * mdecay * minv - eps_scaled ** 4",
-        "2.0 * eps_scaled ** 2 * mdecay * minv + eps_scaled ** 4",
-        ["tests/ops/test_fused_step.py::"
-         "test_burnin_step_math_matches_pytree[sghmc]"],
+        # streaming SVGD: drop the last column tile's padding mask, so
+        # zero-padded particles attract -- the ragged-n tests must catch it
+        "svgd-streaming-unmasked-padding",
+        "pysgmcmc_tpu/ops/svgd_streaming.py",
+        "            valid_j[None, :], jnp.exp(",
+        "            True, jnp.exp(",
+        ["tests/test_svgd_streaming.py::test_arbitrary_n_padded_and_masked"],
     ),
     (
         # SGNHT: freeze the Nose-Hoover thermostat at its init value --

@@ -159,7 +159,7 @@ def main(out_dir=None):
         "<title>pysgmcmc_tpu API documentation</title>",
         "<style>{}</style>".format(STYLE),
         "<h1>pysgmcmc_tpu API documentation</h1>",
-        "<p class='modsummary'>TPU-native stochastic-gradient MCMC: "
+        "<p class='modsummary'>Stochastic-gradient MCMC in JAX: "
         "samplers, parallel chains over device meshes, diagnostics, and "
         "Bayesian model families.  Generated from the package docstrings; "
         "all examples are executed by the doctest suite.</p>",

@@ -1,16 +1,13 @@
-"""Render the headline result figures into docs/figures/*.png.
+"""Render the result figure into docs/figures/banana_rsghmc.png.
 
-The analog of the reference's executable-notebook outputs
-(``/root/reference/docs/source/notebooks/Effective_Sample_Sizes.ipynb`` —
-ESS-vs-stepsize curves — and ``Relativistic_SGHMC.ipynb`` — the banana
-target reproduction): the committed sweep artifacts
-(``benchmarks/results_ess_*.json``) become the curves, and the banana
-reproduction is re-sampled live on CPU (2-D target, seconds).
+The analog of the reference's executable-notebook output
+(``/root/reference/docs/source/notebooks/Relativistic_SGHMC.ipynb`` — the
+banana target reproduction), re-sampled live on the CPU (2-D target,
+seconds).
 
 Run: ``python docs/gen_figures.py`` (or ``make figures``).
 """
 
-import json
 import os
 import sys
 
@@ -27,15 +24,9 @@ OUT = os.path.join(HERE, "figures")
 
 # slots 1-2 of the validated default categorical palette (light mode)
 BLUE = "#2a78d6"
-ORANGE = "#eb6834"
 INK = "#333333"
 MUTED = "#767676"
 GRID = "#e3e3e3"
-
-# the reference's shipped measurement (TF-1 era), from
-# docs/source/notebooks/data/effective_sample_sizes/Relativistic_SGHMC.json
-REFERENCE_BEST = {"banana": 73725.0, "gmm2": 181077.0, "gmm3": 172501.0}
-
 
 def _style(ax):
     ax.grid(True, color=GRID, linewidth=0.8, zorder=0)
@@ -46,56 +37,8 @@ def _style(ax):
     ax.tick_params(colors=MUTED, labelsize=9)
 
 
-def ess_figure():
-    names = ["banana", "gmm1", "gmm2", "gmm3"]
-    fig, axes = plt.subplots(1, 4, figsize=(13, 3.2), sharey=False)
-    for ax, name in zip(axes, names):
-        path = os.path.join(REPO, "benchmarks",
-                            "results_ess_{}.json".format(name))
-        with open(path) as fh:
-            data = json.load(fh)
-        eps = np.asarray(data["stepsizes"])
-        ess = np.asarray(data["mean_ess"])
-        _style(ax)
-        ax.plot(eps, ess, color=BLUE, linewidth=2, zorder=3)
-        best = data["best"]
-        ax.plot([best["stepsize"]], [best["mean_ess"]], "o",
-                color=BLUE, markersize=8, zorder=4)
-        ax.annotate(
-            "{:,.0f}".format(best["mean_ess"]),
-            (best["stepsize"], best["mean_ess"]),
-            textcoords="offset points", xytext=(4, -12),
-            fontsize=9, color=INK)
-        if name in REFERENCE_BEST:
-            ax.axhline(REFERENCE_BEST[name], color=ORANGE,
-                       linewidth=2, linestyle=(0, (4, 3)), zorder=2)
-        ax.set_title(name, fontsize=11, color=INK)
-        ax.set_xlabel("stepsize", fontsize=9, color=MUTED)
-    axes[0].set_ylabel("mean ESS (20 chains x 10k samples)",
-                       fontsize=9, color=MUTED)
-    handles = [
-        plt.Line2D([], [], color=BLUE, linewidth=2,
-                   label="this framework (RSGHMC, TPU)"),
-        plt.Line2D([], [], color=ORANGE, linewidth=2,
-                   linestyle=(0, (4, 3)),
-                   label="reference's shipped best (TF-1)"),
-    ]
-    fig.legend(handles=handles, loc="upper center", ncol=2, frameon=False,
-               fontsize=9, bbox_to_anchor=(0.5, 1.08))
-    fig.suptitle("Relativistic SGHMC: ESS vs stepsize "
-                 "(reference experiment protocol)",
-                 fontsize=12, color=INK, y=1.16)
-    fig.tight_layout()
-    out = os.path.join(OUT, "ess_vs_stepsize.png")
-    fig.savefig(out, dpi=150, bbox_inches="tight")
-    plt.close(fig)
-    print("wrote", out)
-
-
 def banana_figure():
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from pysgmcmc_tpu.diagnostics.objective_functions import (
@@ -141,7 +84,6 @@ def banana_figure():
 
 def main():
     os.makedirs(OUT, exist_ok=True)
-    ess_figure()
     banana_figure()
 
 

@@ -32,7 +32,6 @@ from pysgmcmc_tpu.samplers.sghmc import SGHMCSampler
 
 
 def main():
-    jax.config.update("jax_platforms", "cpu")
     n_chains, n_draws = 4, 2000
     sampler = SGHMCSampler(
         to_negative_log_likelihood(gmm1_log_likelihood),

@@ -15,11 +15,7 @@ Runs in ~a minute on CPU; executed by ``make examples``.
 import numpy as np
 from scipy.stats import norm
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-from pysgmcmc_tpu.models.bayesian_neural_network import (  # noqa: E402
+from pysgmcmc_tpu.models.bayesian_neural_network import (
     BayesianNeuralNetwork,
 )
 

@@ -1,6 +1,6 @@
 """ESS-vs-stepsize experiment runner.
 
-TPU-native counterpart of the reference's experiment CLI
+Counterpart of the reference's experiment CLI
 (``/root/reference/docs/source/experiments/compute_ess.py:30-133``): for a
 benchmark density and a sweep of stepsizes, run ``n_chains`` chains of a
 sampler and record per-stepsize mean effective sample sizes.  The reference

@@ -1,11 +1,11 @@
-"""pysgmcmc_tpu — a TPU-native Stochastic Gradient MCMC framework.
+"""pysgmcmc_tpu — a Stochastic Gradient MCMC framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``MFreidank/pysgmcmc`` (reference at ``/root/reference``): SG-MCMC samplers
 (SGHMC, SGLD, Relativistic SGHMC, SVGD) as pure ``init/step`` functions,
 whole sampling runs as single ``lax.scan`` programs, thousands of chains via
-``vmap`` sharded over TPU meshes, and on-device diagnostics (ESS, Gelman-
-Rubin) over HBM-resident chain histories.
+``vmap`` sharded over device meshes, and on-device diagnostics (ESS, Gelman-
+Rubin) over device-resident chain histories.
 """
 
 __version__ = "0.1.0"

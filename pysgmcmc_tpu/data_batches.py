@@ -4,15 +4,15 @@ The reference feeds minibatches through ``tf.Session.run`` feed-dicts built by
 host-side numpy generators (``/root/reference/pysgmcmc/data_batches.py``): a
 seeded RNG picks a random *contiguous window* of the dataset each step
 (``data_batches.py:118-129``) or additionally shuffles within the window
-(``:132-206``).  A host round trip per step would dominate TPU step time, so
-here the dataset lives in HBM and the window start is computed from the PRNG
-key *inside* the jitted scan — the same index arithmetic
+(``:132-206``).  A host round trip per step would dominate the device step
+time, so here the dataset lives on the device and the window start is
+computed from the PRNG key *inside* the jitted scan — the same index arithmetic
 (``start = randint(0, n - batch + 1)``), but fused into the step.
 
 Two layers are provided:
 
 - ``batch_fn`` / ``shuffled_batch_fn``: pure ``(key) -> (x_batch, y_batch)``
-  functions for use inside ``lax.scan`` (the TPU-native path).
+  functions for use inside ``lax.scan`` (the on-device path).
 - ``generate_batches`` / ``generate_shuffled_batches``: infinite host-side
   generators with the reference's signature shape for API parity; they yield
   ``(x_batch, y_batch)`` numpy-compatible arrays instead of feed-dicts
@@ -49,11 +49,6 @@ def _effective_batch_size(n_examples, batch_size):
     return effective
 
 
-# Above this many elements in the precomputed windows tensor, fall back to
-# dynamic_slice selection (fast single-chain; becomes a gather under vmap).
-_WINDOWS_ELEMENT_BUDGET = 1 << 22
-
-
 def batch_fn(x, y, batch_size=20):
     """Return a pure ``(key) -> (x_batch, y_batch)`` minibatch selector.
 
@@ -65,44 +60,17 @@ def batch_fn(x, y, batch_size=20):
     ``y`` batches are returned with shape ``(batch_size, 1)`` to match the
     reference's reshape (``data_batches.py:123-127``).
 
-    TPU note: for small datasets the selector materializes all contiguous
-    windows once and picks one with a one-hot *matmul*.  Under ``vmap``
-    (thousands of chains, each drawing its own window) this lowers to one
-    MXU matmul; the naive ``dynamic_slice`` formulation would lower to an
-    XLA gather, which serializes on TPU (measured 5x slower on the whole
-    8192-chain BNN step).  Large datasets fall back to ``dynamic_slice``.
+    The window is a ``dynamic_slice`` (a gather under ``vmap``), so the
+    batch holds the data's exact values.  On an H100 it measured 1% faster
+    in the 8192-chain BNN step than the alternative of a one-hot matmul
+    over precomputed windows, which also needs ``Precision.HIGHEST`` to be
+    exact (PERF.md).
     """
     x = jnp.asarray(x)
     y = jnp.asarray(y)
     n_examples = x.shape[0]
     batch_size = _effective_batch_size(n_examples, batch_size)
     n_windows = n_examples - batch_size + 1
-
-    x_feature_size = int(np.prod(x.shape[1:], dtype=np.int64)) if x.ndim > 1 else 1
-    windows_elements = n_windows * batch_size * (x_feature_size + 1)
-    use_onehot = (
-        windows_elements <= _WINDOWS_ELEMENT_BUDGET
-        and jnp.issubdtype(x.dtype, jnp.floating)
-        and jnp.issubdtype(y.dtype, jnp.floating)
-    )
-
-    if use_onehot:
-        x_windows = jnp.stack(
-            [x[i:i + batch_size].reshape(-1) for i in range(n_windows)]
-        )  # (n_windows, batch*feat)
-        y_windows = jnp.stack(
-            [y[i:i + batch_size].reshape(-1) for i in range(n_windows)]
-        )
-        x_batch_shape = (batch_size,) + x.shape[1:]
-
-        def select(key):
-            start = jax.random.randint(key, (), 0, n_windows)
-            onehot = (jnp.arange(n_windows) == start).astype(x.dtype)
-            x_batch = (onehot @ x_windows).reshape(x_batch_shape)
-            y_batch = (onehot.astype(y.dtype) @ y_windows).reshape(-1, 1)
-            return x_batch, y_batch
-
-        return select
 
     def select(key):
         start = jax.random.randint(key, (), 0, n_windows)
@@ -116,7 +84,7 @@ def batch_fn(x, y, batch_size=20):
 def shuffled_batch_fn(x, y, batch_size=20):
     """Like :func:`batch_fn` but with an in-window permutation per batch.
 
-    TPU-native analog of ``generate_shuffled_batches``
+    On-device analog of ``generate_shuffled_batches``
     (``data_batches.py:132-206``): the same permutation is applied to ``x``
     and ``y`` so datapoints stay aligned with their labels.
     """

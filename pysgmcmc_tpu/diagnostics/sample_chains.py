@@ -102,7 +102,7 @@ class PYSGMCMCTrace:
     ):
         """Draw ``n_samples`` (thinned by ``keep_every``) and wrap them.
 
-        TPU-native analog of the reference's ``islice`` extraction
+        On-device analog of the reference's ``islice`` extraction
         (``sample_chains.py:97-181``) — one compiled scan.
         """
         from pysgmcmc_tpu.samplers.base import sample_chain

@@ -2,10 +2,10 @@
 
 The reference delegates ESS and Gelman-Rubin to pymc3 over host-side traces
 (``/root/reference/pysgmcmc/diagnostics/sampler_diagnostics.py:7-44``); here
-both are implemented natively over HBM-resident chain histories of shape
+both are implemented natively over device-resident chain histories of shape
 ``(n_chains, n_samples, ...)`` so they jit, vmap over parameter dimensions,
 and — when the chain axis is sharded over a mesh — turn the pooled
-between-chain statistics into ICI collectives inserted by GSPMD.
+between-chain statistics into collectives inserted by GSPMD.
 
 Formulae (Gelman et al., Bayesian Data Analysis 3rd ed., ch. 11.4-11.5 —
 the same estimators pymc3 implements):

@@ -7,10 +7,10 @@ output bias initialized to ``log(1e-3)`` concatenated as the second output
 column.  He-normal (fan-in, truncated normal) weight init, zero biases.
 
 Networks are ``(init_fn, apply_fn)`` pairs over plain dict pytrees — no
-framework dependency, so the same params flow through samplers, Pallas
-kernels, and ``vmap`` ensembles untouched.  Matmuls use
-``preferred_element_type`` so the MXU accumulates in float32 even under
-bfloat16 params.
+framework dependency, so the same params flow through samplers, packed
+drivers and ``vmap`` ensembles untouched.  Matmuls pass
+``preferred_element_type`` so the accumulation dtype is the network's
+``dtype``.
 
 Examples
 --------
@@ -46,10 +46,8 @@ def default_network(n_inputs, units=(50, 50, 50), dtype=jnp.float32):
         for i, (fan_in, fan_out) in enumerate(
             zip(layer_sizes[:-1], layer_sizes[1:])
         ):
-            # f64 draws go through f32: the truncated-normal sampler's
-            # nextafter lowers to an s64 bitcast that TPU's x64 rewrite
-            # does not implement (init randomness needs no extra
-            # mantissa; the cast is exact)
+            # f64 draws go through f32, so a float64 network draws the
+            # same initial weights as a float32 one (the cast is exact)
             draw_dtype = (
                 jnp.float32 if jnp.dtype(dtype).itemsize > 4 else dtype)
             params["w{}".format(i + 1)] = he_normal(
@@ -83,7 +81,7 @@ def default_network(n_inputs, units=(50, 50, 50), dtype=jnp.float32):
 
 
 def dense_network(n_inputs, units=(50, 50, 50), dtype=jnp.float32):
-    """The same architecture with TPU-lane-friendly parameter shapes.
+    """The same architecture with squeezed parameter shapes.
 
     Mathematically identical to :func:`default_network` — same function
     class, and ``init`` draws the *same* weights from the same key (the
@@ -96,11 +94,8 @@ def dense_network(n_inputs, units=(50, 50, 50), dtype=jnp.float32):
     - the mean head is a matvec, so the last weight is stored
       ``(units[-1],)``
 
-    Why this matters: row-major TPU layouts tile the two minor dims to
-    (8, 128), so a stacked ``(n_chains, 50, 1)`` head weight inflates
-    ~70x physically; every per-step pass over it (bf16 cast, gradient,
-    noise, update) pays that.  Measured on the flagship gradient pass:
-    2.48 -> 2.23 ms/step (``benchmarks/archive/head_reshape_tpu.py``).
+    Whether this layout is faster than :func:`default_network` on a GPU
+    is not measured.
 
     Examples
     --------

@@ -1,6 +1,6 @@
 """Bayesian neural network trained with SG-MCMC, fully on device.
 
-TPU-native redesign of the reference BNN
+JAX redesign of the reference BNN
 (``/root/reference/pysgmcmc/models/bayesian_neural_network.py:147-630``),
 after Springenberg et al., NIPS 2016: train = sample network weights with an
 SG-MCMC sampler, predict = ensemble over the collected weight snapshots.
@@ -14,7 +14,7 @@ Architectural translation:
 - Prediction runs one ``session.run`` per ensemble member in the reference
   (``:602-606``); here it is a single ``vmap`` over the stacked weight
   samples (``:619-628`` for the moment matching).
-- The posterior ensemble is a stacked pytree in HBM, not a host-side deque
+- The posterior ensemble is a stacked pytree on the device, not a host-side deque
   (``:290``).
 
 Priors and likelihood match the reference exactly
@@ -56,6 +56,11 @@ from pysgmcmc_tpu.stepsize_schedules import (
 )
 from pysgmcmc_tpu.utils.numeric import safe_divide
 from pysgmcmc_tpu.utils.pytree import tree_size
+
+
+# Constructor options of the removed hand-written kernel path; passing one
+# raises instead of being forwarded to the sampler as an unknown keyword.
+_REMOVED_OPTIONS = ("pair_dots", "noise_impl", "backend", "interpret")
 
 
 def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
@@ -112,22 +117,10 @@ class BayesianNeuralNetwork(BaseModel):
     :func:`pysgmcmc_tpu.parallel.mesh.chain_mesh`) to shard chains over
     devices.
 
-    **Injected-noise generator** (``noise_impl``, fused paths only): with
-    ``step_impl='fused'`` the default ``'auto'`` resolves to
-    ``'hadamard_clt'`` — the sampler's injected Gaussian noise is drawn
-    on the MXU as a CLT sum of fresh uniforms through a +-1 Hadamard
-    matmul (Irwin-Hall marginals, n=64/128 lanes: exact mean/covariance,
-    excess kurtosis ``-1.2/n`` ~ -0.01, bounded support ``+-sqrt(3n)`` ~
-    +-19.6 sigma) instead of Box-Muller's transcendental chain.
-    SG-MCMC's invariant-measure error depends on the injected noise only
-    through its low moments (Chen et al. 2014), so the O(1/n)
-    fourth-moment deficit sits far below the O(eps) discretization bias;
-    the on-chip posterior-quality A/B is committed at
-    ``benchmarks/results_noise_quality.json``.  Pass
-    ``noise_impl='box_muller'`` to reproduce exact-Gaussian draws (the
-    reference's ``tf.random_normal`` analog,
-    ``/root/reference/pysgmcmc/samplers/base_classes.py:199-220``); the
-    pytree/lanes step_impls always use Box-Muller-quality normals.
+    ``step_impl`` picks the training driver: ``'pytree'`` (default) runs
+    the samplers' own ``step`` under ``vmap``/``scan``; ``'lanes'`` runs
+    both phases on the packed chains-on-lanes drivers of
+    :mod:`pysgmcmc_tpu.parallel.packed`.
     """
 
     def __init__(
@@ -151,11 +144,19 @@ class BayesianNeuralNetwork(BaseModel):
         network="reference",
         step_impl="pytree",
         units=(50, 50, 50),
-        pair_dots=False,
-        noise_impl="auto",
         **sampler_kwargs,
     ):
         super().__init__()
+        removed = sorted(set(sampler_kwargs) & set(_REMOVED_OPTIONS))
+        if step_impl == "fused":
+            removed.insert(0, "step_impl='fused'")
+        if removed:
+            raise ValueError(
+                "BayesianNeuralNetwork: {} {} removed together with the "
+                "hand-written kernel path; use step_impl='pytree' (default) "
+                "or 'lanes'".format(
+                    ", ".join(removed), "was" if len(removed) == 1 else "were")
+            )
         if not isinstance(n_nets, int) or n_nets <= 0:
             raise ValueError("n_nets must be a positive integer")
         if not isinstance(n_iters, int) or n_iters <= 0:
@@ -214,32 +215,17 @@ class BayesianNeuralNetwork(BaseModel):
         ):
             raise ValueError("log_every must be a positive integer or None")
         self.log_every = log_every
-        # network="dense": the TPU-lane-friendly parameterization of the
-        # same architecture (models/architectures.dense_network — identical
-        # math and init draws).  step_impl="lanes": run the sampling phase
-        # on the chains-on-lanes fused elementwise kernels (any sampler in
-        # the gradient-based family, any architecture; ops/slim_update).
-        # step_impl="fused": run the sampling phase
-        # on the flash-SGHMC whole-step Pallas kernel (ops/fused_step) —
-        # measured 2.58M steps/sec/chip (multi-step kernel via bench.py)
-        # vs 1.48M for the pytree path on
-        # the 8192-chain flagship; requires network="dense" and a dense
-        # family topology (2-4 equal-width hidden layers, H <= 114 via
-        # units=).  The fused path draws
-        # its noise from the in-kernel TPU PRNG (a different — equally
-        # valid — stream than the threefry pytree path) and ignores
-        # log_every during the sampling phase.
+        # network="dense": the same architecture with packed parameter
+        # shapes (models/architectures.dense_network — identical math and
+        # init draws).  step_impl="lanes": run both phases on the packed
+        # chains-on-lanes drivers (any sampler in the gradient-based
+        # family, any architecture; parallel/packed).
         if network not in ("reference", "dense"):
             raise ValueError("network must be 'reference' or 'dense'")
-        if step_impl not in ("pytree", "fused", "lanes"):
-            raise ValueError(
-                "step_impl must be 'pytree', 'fused' or 'lanes'")
+        if step_impl not in ("pytree", "lanes"):
+            raise ValueError("step_impl must be 'pytree' or 'lanes'")
         if step_impl == "lanes":
-            # chains-on-lanes fused kernels (burn-in AND sampling phase):
-            # works for any architecture/cost and for SGHMC, SGLD, PSGLD,
-            # RelativisticSGHMC and SGNHT (ops/slim_update +
-            # parallel/packed).  Composes with ``mesh`` — the drivers
-            # shard_map the kernel path over the chain axis.
+            # Composes with ``mesh`` — the drivers shard_map the chain axis.
             lanes_ok = (
                 Sampler.SGHMC, Sampler.SGLD, Sampler.PSGLD,
                 Sampler.RelativisticSGHMC, Sampler.SGNHT,
@@ -252,80 +238,11 @@ class BayesianNeuralNetwork(BaseModel):
         if not units or any(u <= 0 for u in units):
             raise ValueError("units must be positive layer widths")
         self.units = units
-        if step_impl == "fused":
-            if network != "dense":
-                raise ValueError("step_impl='fused' requires network='dense'")
-            if not 2 <= len(units) <= 4:
-                # the fused generators pack one (H, H) matrix slab per
-                # hidden layer beyond the first within the VMEM budget
-                # (ops/fused_step.pack_fused / fused_depth)
-                raise ValueError(
-                    "step_impl='fused' supports 2-4 hidden layers; "
-                    "got units={!r} (use step_impl='lanes' for other "
-                    "topologies)".format(tuple(units)))
-            if len(set(units)) != 1:
-                raise ValueError(
-                    "step_impl='fused' requires equal hidden widths")
-            from pysgmcmc_tpu.ops.fused_step import fused_slot
-
-            fused_slot(units[0])  # validates H <= 114
-            if sampling_method not in (
-                Sampler.SGHMC, Sampler.SGLD, Sampler.PSGLD, Sampler.SGNHT,
-                Sampler.RelativisticSGHMC,
-            ):
-                raise ValueError(
-                    "step_impl='fused' supports SGHMC, SGLD, PSGLD, SGNHT "
-                    "and RelativisticSGHMC")
-            if get_net is not None:
-                raise ValueError(
-                    "step_impl='fused' supports the dense NxH architecture "
-                    "family (H <= 114, via units=); pass get_net only with "
-                    "step_impl='lanes' or 'pytree'"
-                )
-        # pair_dots: run the sampling phase on the paired-dot multi-step
-        # kernels (block-diagonal 2-chain MXU operands at full 128-lane
-        # depth; ops/fused_step._make_multistep_kernel_family_paired).
-        # 64-slot layout (H <= 50), 1 input feature; the drivers
-        # validate the rest.  Step-varying schedules are exact through
-        # the multi-step kernels (per-step SMEM scalar rows).
-        if pair_dots:
-            if step_impl != "fused":
-                raise ValueError("pair_dots requires step_impl='fused'")
-            if len(units) != 3:
-                raise ValueError(
-                    "pair_dots supports the flagship 3-hidden-layer "
-                    "topology only; got units={!r}".format(tuple(units)))
-        self.pair_dots = bool(pair_dots)
-        # noise_impl: the fused kernels' in-kernel normal generator —
-        # 'box_muller' (VPU transcendentals) or 'hadamard_clt' (the
-        # MXU mixing generator, ops/fused_step._normal_clt; measured
-        # +66%/+156% at H=50/H=100, docs/performance.md "MXU-CLT
-        # noise").  'auto' stays unresolved here: the drivers resolve it
-        # per call via parallel.packed.resolve_noise_impl, which needs
-        # the interpret flag — under interpret (CPU) 'auto' must mean
-        # Box-Muller, whose zero-PRNG-bits output is zero noise; eagerly
-        # resolving to hadamard_clt here injected its zero-bit CONSTANT
-        # (-sqrt(12n)/2 on lane 0) as a persistent per-step bias into
-        # every CPU training run.  Fused step_impl only; the
-        # pytree/lanes paths keep their own streams.
-        if noise_impl == "auto" and (step_impl != "fused" or pair_dots):
-            noise_impl = "box_muller"
-        if noise_impl not in ("auto", "box_muller", "hadamard_clt"):
-            raise ValueError(
-                "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
-                + repr(noise_impl))
-        if noise_impl != "box_muller" and step_impl != "fused":
-            raise ValueError("noise_impl requires step_impl='fused'")
-        if noise_impl != "box_muller" and pair_dots:
-            raise ValueError(
-                "pair_dots kernels support noise_impl='box_muller' only")
-        self.noise_impl = noise_impl
         self.network = network
         self.step_impl = step_impl
         # Mixed precision: run the network's matmuls in ``compute_dtype``
-        # (e.g. bfloat16 — the TPU MXU's native format, ~2x faster) while
-        # the sampler state, priors, and likelihood arithmetic stay in
-        # ``dtype``.  The bf16 rounding perturbation on the minibatch
+        # (e.g. bfloat16) while the sampler state, priors, and likelihood
+        # arithmetic stay in ``dtype``.  The bf16 rounding perturbation on the minibatch
         # gradient is far below SG-MCMC's injected sampling noise.
         self.compute_dtype = compute_dtype
         self.dtype = dtype
@@ -409,7 +326,7 @@ class BayesianNeuralNetwork(BaseModel):
         """Sample ``n_nets`` network-weight snapshots from the posterior.
 
         The whole run (burn-in + thinned collection, minibatching included)
-        executes as one compiled scan — the TPU-native replacement for the
+        executes as one compiled scan — the replacement for the
         reference's per-step ``session.run`` loop
         (``bayesian_neural_network.py:510-531``).
         """
@@ -444,7 +361,7 @@ class BayesianNeuralNetwork(BaseModel):
             init_fn, apply_fn = self.get_net
         self._apply_fn = apply_fn
         # jitted ensemble forward for predict() — an eager vmap would
-        # dispatch op-by-op (slow on remote devices)
+        # dispatch op-by-op
         self._ensemble_fn = jax.jit(
             jax.vmap(apply_fn, in_axes=(0, None))
         )
@@ -476,13 +393,6 @@ class BayesianNeuralNetwork(BaseModel):
             logging.info(
                 "BayesianNeuralNetwork(SVGD): transported %d particles in "
                 "%.2fs", self.n_nets, time.time() - start_time,
-            )
-            return
-
-        if self.step_impl == "fused":
-            self._train_fused(
-                init_fn, apply_fn, x_dev, y_dev, n_datapoints,
-                key_net, key_init, key_burn, key_sample, start_time,
             )
             return
 
@@ -554,10 +464,7 @@ class BayesianNeuralNetwork(BaseModel):
                 )
 
             samples, costs = jax.jit(vmapped)(positions, chain_keys)
-            # pool: (n_chains, per_chain, ...) -> (n_chains*per_chain, ...)
-            self.samples = jax.tree_util.tree_map(
-                lambda leaf: leaf.reshape((-1,) + leaf.shape[2:]), samples
-            )
+            self.samples = self._pool_chains(samples)
             self._n_collected = self.n_chains * per_chain
             self.is_trained = True
             logging.info(
@@ -602,12 +509,12 @@ class BayesianNeuralNetwork(BaseModel):
         key_net, key_init, key_burn, key_sample, start_time,
         apply_fn, x_dev, y_dev,
     ):
-        """Training with the chains-on-lanes fused kernels, end to end.
+        """Training with the chains-on-lanes packed drivers, end to end.
 
-        BOTH phases run on the packed chains-on-lanes kernel path: burn-in
-        via :func:`pysgmcmc_tpu.parallel.packed.burnin_chain_lanes` (the
-        fused EMA-adaptation kernels, for the adaptive SGHMC/SGLD; the
-        non-adaptive PSGLD/RSGHMC/SGNHT discard early lanes-kernel samples
+        BOTH phases run on the packed chains-on-lanes path: burn-in via
+        :func:`pysgmcmc_tpu.parallel.packed.burnin_chain_lanes` (the
+        EMA-adaptation update, for the adaptive SGHMC/SGLD; the
+        non-adaptive PSGLD/RSGHMC/SGNHT discard early lanes-driver samples
         instead) and sampling via
         :func:`pysgmcmc_tpu.parallel.packed.sample_chain_lanes` — for any
         architecture/cost function and all five gradient-based samplers.
@@ -636,7 +543,6 @@ class BayesianNeuralNetwork(BaseModel):
         state_dtype = (
             jnp.bfloat16 if self.compute_dtype is not None else jnp.float32
         )
-        backend = "xla" if jax.default_backend() == "cpu" else "pallas"
         adaptive = Sampler.is_burn_in_mcmc(self.sampling_method)
         mesh = self.mesh
 
@@ -666,16 +572,15 @@ class BayesianNeuralNetwork(BaseModel):
             if adaptive:
                 return jax.jit(lambda s, k: burnin_chain_lanes(
                     sampler, s, k, n_steps, batch_fn=select_batch,
-                    compute_dtype=self.compute_dtype, backend=backend,
+                    compute_dtype=self.compute_dtype,
                     state_dtype=jnp.float32, mesh=mesh,
                 ))
             # PSGLD adapts continuously / RSGHMC has no burn-in machinery:
-            # "burn-in" is simply discarded lanes-kernel steps
+            # "burn-in" is simply discarded lanes-driver steps
             return jax.jit(lambda s, k: sample_chain_lanes(
                 sampler, s, k, 1, batch_fn=select_batch,
                 keep_every=n_steps, compute_dtype=self.compute_dtype,
-                backend=backend, state_dtype=state_dtype,
-                collect_positions=False, mesh=mesh,
+                state_dtype=state_dtype, collect_positions=False, mesh=mesh,
             )[0])
 
         # telemetry chunks the burn-in at log boundaries; telemetry off
@@ -701,7 +606,7 @@ class BayesianNeuralNetwork(BaseModel):
                 sampler, states, key, n_keep, batch_fn=select_batch,
                 keep_every=self.sample_steps,
                 compute_dtype=self.compute_dtype,
-                backend=backend, state_dtype=state_dtype, mesh=mesh,
+                state_dtype=state_dtype, mesh=mesh,
             )
         sample_seg = jax.jit(sample_seg, static_argnums=2)
 
@@ -720,260 +625,12 @@ class BayesianNeuralNetwork(BaseModel):
         else:
             _, samples, _ = sample_seg(states, key_sample, per_chain)
 
-        self.samples = jax.tree_util.tree_map(
-            lambda leaf: leaf.reshape((-1,) + leaf.shape[2:]), samples
-        )
+        self.samples = self._pool_chains(samples)
         self._n_collected = n_chains * per_chain
         self.is_trained = True
         logging.info(
             "BayesianNeuralNetwork(lanes): %d chains x %d samples in %.2fs",
             n_chains, per_chain, time.time() - start_time,
-        )
-
-    def _train_fused(
-        self, init_fn, apply_fn, x_dev, y_dev, n_datapoints,
-        key_net, key_init, key_burn, key_sample, start_time,
-    ):
-        """Training with the flash-SGHMC whole-step kernel.
-
-        Burn-in runs on the fused EMA lanes kernels and the sampling
-        phase runs the multi-step VMEM-resident kernel — ``sample_steps``
-        updates per launch with in-kernel minibatch selection
-        (:func:`pysgmcmc_tpu.parallel.packed.sample_chain_fused` with
-        ``multistep=True``; measured 3.19 ms/step = 2.56M steps/sec/chip
-        on the 8192-chain flagship, vs 1.48M for the pytree path).
-        Step-varying schedules run through the same kernel exactly: the
-        driver ships a per-step eps vector into the kernel's SMEM scalar
-        table.  The L2 weight prior is folded analytically
-        into the update (``gaussian_prior_scale`` — identical dynamics,
-        pinned by ``tests/test_bench_smoke.py``'s fold-parity test), so
-        the cost function here carries only the likelihood and the
-        log-variance prior.
-        """
-        import jax.numpy as jnp  # noqa: F811
-
-        from pysgmcmc_tpu.parallel.packed import sample_chain_fused
-        from pysgmcmc_tpu.utils.pytree import tree_size
-
-        from pysgmcmc_tpu.ops.fused_step import MAX_INPUTS
-
-        if x_dev.shape[1] > MAX_INPUTS:
-            raise ValueError(
-                "step_impl='fused' supports up to {} input features (the "
-                "flagship architecture family); got n_inputs={}".format(
-                    MAX_INPUTS, x_dev.shape[1])
-            )
-        n_chains = max(1, self.n_chains)
-        per_chain = self._n_collect(
-            self.n_nets // n_chains if self.n_chains > 1 else None
-        )
-        params0 = init_fn(key_net)
-        n_params = tree_size(params0)
-        prior_scale = 1.0 / (n_params * float(n_datapoints))
-
-        def cost_fn(params, batch):
-            # likelihood + log-variance prior only: the weight prior is
-            # folded into the sampler update via gaussian_prior_scale
-            x_batch, y_batch = batch
-            if self.compute_dtype is not None:
-                from pysgmcmc_tpu.utils.pytree import tree_cast
-
-                net_out = apply_fn(
-                    tree_cast(params, self.compute_dtype),
-                    jnp.asarray(x_batch, self.compute_dtype),
-                ).astype(self.dtype)
-            else:
-                net_out = apply_fn(params, x_batch)
-            f_mean = net_out[:, 0:1]
-            f_log_var = net_out[:, 1:2]
-            f_var_inv = 1.0 / (jnp.exp(f_log_var) + 1e-16)
-            mse = jnp.square(y_batch - f_mean)
-            ll = jnp.sum(
-                jnp.sum(-mse * (0.5 * f_var_inv) - 0.5 * f_log_var, axis=1)
-            ) / jnp.asarray(self.batch_size, self.dtype)
-            ll += log_variance_prior_log_like(f_log_var) / jnp.asarray(
-                n_datapoints, self.dtype)
-            return -ll
-
-        kwargs = dict(self.sampler_kwargs)
-        if self.sampling_method != Sampler.RelativisticSGHMC:
-            # RSGHMC has no minibatch noise-scaling hyperparameter
-            # (reference relativistic_sghmc.py:24-27)
-            kwargs.setdefault("scale_grad", float(n_datapoints))
-        if Sampler.is_burn_in_mcmc(self.sampling_method):
-            kwargs.setdefault("burn_in_steps", self.burn_in_steps)
-        kwargs.setdefault("gaussian_prior_scale", prior_scale)
-        sampler = Sampler.get_sampler(
-            self.sampling_method, cost_fn=cost_fn,
-            stepsize_schedule=self.stepsize_schedule, dtype=self.dtype,
-            **kwargs,
-        )
-
-        select_batch = make_batch_fn(x_dev, y_dev, self.batch_size)
-        positions = jax.vmap(init_fn)(jax.random.split(key_net, n_chains))
-        # the kernel grid blocks over each device's LOCAL chains: under a
-        # mesh the drivers shard_map the chain axis, so block_chains must
-        # divide n_chains / mesh_size, not n_chains
-        local_chains = n_chains
-        if self.mesh is not None:
-            mesh_size = int(self.mesh.devices.size)
-            if n_chains % mesh_size:
-                raise ValueError(
-                    "n_chains ({}) must be divisible by the mesh size "
-                    "({})".format(n_chains, mesh_size))
-            local_chains = n_chains // mesh_size
-        # Larger kernel blocks amortize the per-grid-instance skeleton
-        # (k-step loop, slab residency, cost row) over more chains:
-        # measured +6% at the flagship (block 128 vs 32, H=50 —
-        # benchmarks/results_block_ab.json).  VMEM bounds the block: the
-        # depth-4 slab set at block 128 needs 113 MB against the
-        # kernels' 100 MB scoped budget (measured OOM on chip), and the
-        # wide 128-slot layout (H > 50) carries 4x the per-chain VMEM —
-        # both fall back (64 / 32 respectively).
-        from pysgmcmc_tpu.ops.fused_step import BIAS_ROW
-
-        if max(self.units) > BIAS_ROW:
-            max_block = 32
-        elif len(self.units) >= 4:
-            max_block = 64
-        else:
-            max_block = 128
-        block = local_chains
-        for cand in (128, 64, 32, 16, 8, 4, 2, 1):
-            if cand <= max_block and local_chains % cand == 0 \
-                    and cand <= local_chains:
-                block = cand
-                break
-
-        state_dtype = (
-            jnp.bfloat16 if self.compute_dtype is not None
-            else jnp.float32
-        )
-        interpret = jax.default_backend() == "cpu"
-
-        metric = lambda pos: self.negative_log_likelihood(  # noqa: E731
-            apply_fn, pos, x_dev, y_dev, n_datapoints
-        )
-        metrics_fn = jax.jit(jax.vmap(metric))
-
-        def log_point(iteration, positions_now, n_samples=None):
-            if self.log_every is None or not logging.getLogger(
-            ).isEnabledFor(logging.INFO):
-                return
-            nll, mse = metrics_fn(positions_now)
-            suffix = "" if n_samples is None else " Samples = {}".format(
-                n_samples)
-            logging.info(
-                "Iter %8d : NLL = %.4e MSE = %.4e%s Time = %5.2f",
-                iteration, float(jnp.mean(nll)), float(jnp.mean(mse)),
-                suffix, time.time() - start_time,
-            )
-
-        def make_burn(n_steps):
-            # burn-in on the multi-step VMEM-resident fused kernel
-            # (parallel/packed.burnin_chain_fused — the whole adaptive
-            # phase in one launch; the schedule is evaluated per step and
-            # shipped as an eps vector, so step-varying schedules are
-            # exact).  PSGLD and SGNHT have no burn-in machinery: early
-            # lanes-kernel steps are simply discarded.
-            from pysgmcmc_tpu.parallel.packed import (
-                burnin_chain_fused,
-                burnin_chain_lanes,
-                sample_chain_lanes,
-            )
-
-            if Sampler.is_burn_in_mcmc(self.sampling_method):
-                if use_multistep:
-                    return jax.jit(lambda s, k: burnin_chain_fused(
-                        sampler, s, k, n_steps, x_dev, y_dev,
-                        batch_size=self.batch_size, block_chains=block,
-                        state_dtype=jnp.float32, mesh=self.mesh,
-                        pair_dots=self.pair_dots,
-                        noise_impl=self.noise_impl, interpret=interpret,
-                    ))
-                return jax.jit(lambda s, k: burnin_chain_lanes(
-                    sampler, s, k, n_steps, batch_fn=select_batch,
-                    compute_dtype=self.compute_dtype,
-                    backend="xla" if interpret else "pallas",
-                    state_dtype=jnp.float32, mesh=self.mesh,
-                ))
-            return jax.jit(lambda s, k: sample_chain_lanes(
-                sampler, s, k, 1, batch_fn=select_batch,
-                keep_every=n_steps, compute_dtype=self.compute_dtype,
-                backend="xla" if interpret else "pallas",
-                state_dtype=jnp.float32, collect_positions=False,
-                mesh=self.mesh,
-            )[0])
-
-        # multi-step kernel (k steps per launch, state VMEM-resident):
-        # the drivers evaluate the schedule per inner step and ship a
-        # (keep_every,) eps vector into the kernel's SMEM scalar table
-        # (parallel/packed.thinned_multistep), so step-varying schedules
-        # run through the fast path exactly
-        use_multistep = True
-
-        def sample_seg(states, key, n_keep):
-            return sample_chain_fused(
-                sampler, states, key, n_keep, x_dev, y_dev,
-                batch_size=self.batch_size, keep_every=self.sample_steps,
-                block_chains=block, state_dtype=state_dtype,
-                mesh=self.mesh, multistep=use_multistep,
-                pair_dots=self.pair_dots, noise_impl=self.noise_impl,
-                # CPU has no TPU PRNG: interpret mode checks the plumbing
-                # (tests); real noise requires the chip
-                interpret=interpret,
-            )
-        sample_seg = jax.jit(sample_seg, static_argnums=2)
-
-        states = jax.jit(jax.vmap(sampler.init))(
-            positions, jax.random.split(key_init, n_chains)
-        )
-        log_point(0, states.position)
-
-        # telemetry chunks the burn-in at log boundaries (like the pytree
-        # chunked path); with telemetry off everything runs in one segment
-        if self.log_every is not None and self.burn_in_steps > 0:
-            n_full, rem = divmod(self.burn_in_steps, self.log_every)
-            seg_lengths = [self.log_every] * n_full + ([rem] if rem else [])
-        else:
-            seg_lengths = (
-                [self.burn_in_steps] if self.burn_in_steps > 0 else [])
-        burn_fns = {n: make_burn(n) for n in set(seg_lengths)}
-        iteration = 0
-        burn_keys = jax.random.split(key_burn, max(1, len(seg_lengths)))
-        for i, n_steps in enumerate(seg_lengths):
-            states = burn_fns[n_steps](states, burn_keys[i])
-            iteration += n_steps
-            log_point(iteration, states.position)
-
-        if self.log_every is not None:
-            # one fused segment per collected sample, logged like the
-            # reference's per-sample progress line
-            sample_keys = jax.random.split(key_sample, per_chain)
-            pos_chunks, cost_chunks = [], []
-            for j in range(per_chain):
-                states, pos, cost = sample_seg(states, sample_keys[j], 1)
-                pos_chunks.append(pos)
-                cost_chunks.append(cost)
-                iteration += self.sample_steps
-                log_point(iteration, states.position,
-                          n_samples=(j + 1) * n_chains)
-            samples = jax.tree_util.tree_map(
-                lambda *leaves: jnp.concatenate(leaves, axis=1), *pos_chunks
-            )
-        else:
-            states, samples, costs = sample_seg(
-                states, key_sample, per_chain)
-
-        # pool: (n_chains, per_chain, ...) -> (n_chains*per_chain, ...)
-        self.samples = jax.tree_util.tree_map(
-            lambda leaf: leaf.reshape((-1,) + leaf.shape[2:]), samples
-        )
-        self._n_collected = n_chains * per_chain
-        self.is_trained = True
-        logging.info(
-            "BayesianNeuralNetwork(flash-SGHMC): %d chains x %d samples "
-            "in %.2fs", n_chains, per_chain, time.time() - start_time,
         )
 
     def _train_chunked(
@@ -1117,17 +774,35 @@ class BayesianNeuralNetwork(BaseModel):
         samples = jax.tree_util.tree_map(
             lambda *leaves: jnp.concatenate(leaves, axis=axis), *pos_chunks
         )
-        if multi:
-            # pool: (n_chains, per_chain, ...) -> (n_chains*per_chain, ...)
-            samples = jax.tree_util.tree_map(
-                lambda leaf: leaf.reshape((-1,) + leaf.shape[2:]), samples
-            )
-        self.samples = samples
+        self.samples = self._pool_chains(samples) if multi else samples
         self._n_collected = n_collect * self.n_chains
         self.is_trained = True
         logging.info(
             "BayesianNeuralNetwork: collected %d samples in %.2fs",
             self._n_collected, time.time() - start_time,
+        )
+
+    def _pool_chains(self, samples):
+        """``(n_chains, per_chain, ...)`` -> ``(n_chains * per_chain, ...)``.
+
+        Under a mesh the merged axis keeps the chain-axis sharding; it is
+        given explicitly because JAX cannot infer the sharding of every
+        such merge (e.g. leaves with a size-1 axis).
+        """
+        sharding = None
+        if self.mesh is not None:
+            from pysgmcmc_tpu.parallel.mesh import (
+                chain_sharding,
+                mesh_chain_axes,
+            )
+
+            sharding = chain_sharding(self.mesh, mesh_chain_axes(self.mesh))
+        return jax.tree_util.tree_map(
+            lambda leaf: jax.lax.reshape(
+                leaf, (leaf.shape[0] * leaf.shape[1],) + leaf.shape[2:],
+                out_sharding=sharding,
+            ),
+            samples,
         )
 
     def _train_svgd(self, cost_fn, init_fn, key_net, key_run, select_batch):
@@ -1215,17 +890,11 @@ class BayesianNeuralNetwork(BaseModel):
         One ``vmap`` over the stacked posterior samples replaces the
         reference's per-member ``session.run`` loop (``:602-606``).
 
-        ``compute_dtype`` selects a serving fast path: the ensemble forward
-        runs at that precision (e.g. ``jnp.bfloat16`` — MXU-native matmuls,
-        half the activation traffic) while the mean/variance reduction stays
-        in float32.  Measured on a v5e chip
-        (``benchmarks/results_predict_throughput.json``): the 100-member
-        flagship ensemble serves 12.8M queries/sec steady-state at batch
-        131k; bf16 is ~27% faster at latency-relevant batch sizes (1k) and
-        at parity once the chip saturates, with mean predictive-mean
-        deviation ~4% of the ensemble's own predictive spread (statistically
-        invisible).  Default ``None`` keeps the model's training precision
-        end to end.
+        ``compute_dtype`` selects a serving path at another precision: the
+        ensemble forward runs at that precision (e.g. ``jnp.bfloat16``,
+        half the activation traffic) while the mean/variance reduction
+        stays in float32.  Default ``None`` keeps the model's training
+        precision end to end.
         """
         if not self.is_trained:
             raise ValueError(

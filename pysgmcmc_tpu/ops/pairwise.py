@@ -1,9 +1,9 @@
-"""Pairwise distances and the SVGD RBF kernel, MXU-first.
+"""Pairwise distances and the SVGD RBF kernel, as one Gram matmul.
 
 The reference computes pairwise particle distances with an O(n^2) *Python
 loop* of graph ops plus a `dynamic_stitch` squareform and a full-sort median
 (``/root/reference/pysgmcmc/tensor_utils.py:326-576``), which caps SVGD
-ensembles at a few dozen particles.  Here the Gram matrix rides the MXU:
+ensembles at a few dozen particles.  Here the Gram matrix is one matmul:
 
     D_ij = |x_i|^2 + |x_j|^2 - 2 <x_i, x_j>
 
@@ -49,7 +49,7 @@ def pdist(x):
     matching ``scipy.spatial.distance.pdist`` ordering.  Uses the exact
     broadcast-difference formulation (O(n^2 d) memory) rather than the Gram
     expansion: this path exists for numerical parity with scipy, while
-    :func:`squared_distance_matrix` is the MXU fast path for SVGD.
+    :func:`squared_distance_matrix` is the matmul fast path for SVGD.
     """
     n = x.shape[0]
     diff = x[:, None, :] - x[None, :, :]
@@ -93,7 +93,7 @@ def svgd_kernel(particles):
              = (x_i * sum_j K_ij - sum_j K_ij x_j) / h^2
 
     matching the reference's ``svgd_kernel`` (``samplers/svgd.py:146-180``)
-    but computed from a single MXU Gram matrix instead of looped graph ops.
+    but computed from a single Gram matrix instead of looped graph ops.
     """
     n = particles.shape[0]
     d2 = squared_distance_matrix(particles)

@@ -10,7 +10,7 @@ the external ``arspy`` adaptive-rejection-sampling package on the host
 (``/root/reference/pysgmcmc/samplers/relativistic_sghmc.py:143-223``), which
 is CPU-only and non-jittable.  Here we exploit log-concavity directly with a
 tight analytic envelope, giving a vectorized, jittable, key-deterministic
-rejection sampler that runs on TPU.
+rejection sampler that runs on the device.
 
 By Cauchy-Schwarz, for any tilt ``beta in [0, 1)``:
 

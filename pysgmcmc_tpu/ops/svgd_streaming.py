@@ -1,26 +1,25 @@
-"""Streaming (flash-style) SVGD transport kernel.
+"""Streaming (flash-style) SVGD transport direction.
 
 The SVGD update needs three reductions over the n x n RBF kernel matrix:
 
     phi_i = (1/n) [ sum_j K_ij * (-grad_j)                (attraction)
                   + (x_i sum_j K_ij - sum_j K_ij x_j)/h^2 ]  (repulsion)
 
-The XLA path (:func:`pysgmcmc_tpu.ops.pairwise.svgd_kernel`) materializes
-``K`` (and the distance matrix) in HBM — O(n^2) memory and 2-3 passes of
-O(n^2) traffic.  This Pallas kernel computes ``K`` tile by tile in VMEM and
-accumulates all three reductions on the fly — the same trick
-flash-attention plays on softmax(QK^T)V — so HBM traffic is O(n d) per
-row-tile sweep and ensembles of 10^5+ particles fit trivially.
+The dense path (:func:`pysgmcmc_tpu.ops.pairwise.svgd_kernel`) materializes
+``K`` (and the distance matrix): O(n^2) memory.  Here a ``lax.scan`` walks
+the particles in column tiles, builds one ``(n, tile)`` block of ``K`` at a
+time and accumulates all three reductions as it goes — the same trick
+flash-attention plays on softmax(QK^T)V — so memory is O(n * tile + n * d).
 
 The bandwidth ``h`` is an input (compute it once from
-:func:`pysgmcmc_tpu.ops.pairwise.median_bandwidth`, or a streaming
-quantile estimate for very large n).
+:func:`pysgmcmc_tpu.ops.pairwise.median_bandwidth`, or a subsampled
+estimate for very large n).
 
 Examples
 --------
 >>> import jax, jax.numpy as jnp
 >>> x = jax.random.normal(jax.random.PRNGKey(0), (8, 2))
->>> phi = svgd_phi_streaming(x, -x, 1.0, tile=8, interpret=True)
+>>> phi = svgd_phi_streaming(x, -x, 1.0, tile=4)
 >>> phi.shape
 (8, 2)
 """
@@ -29,82 +28,17 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANES = 128
 
 
-def _kernel(scalar_ref, x_i_ref, x_j_ref, g_j_ref, phi_ref, acc_ref):
-    """Grid (i, j): row tile of particles against column tile j.
-
-    scalar: (2,) prefetched [h, n_valid]; columns >= n_valid are padding
-            and masked out of every reduction.
-    x_i:  (TI, d)  current row-tile particles
-    x_j:  (TJ, d)  column-tile particles
-    g_j:  (TJ, d)  column-tile gradients (of the COST, i.e. -grad log p)
-    phi:  (TI, d)  output transport direction for the row tile
-    acc:  VMEM scratch (TI, d + d + LANES): running [K@(-g), K@x, rowsum(K)]
-    """
-    j = pl.program_id(1)
-    n_j = pl.num_programs(1)
-    h = scalar_ref[0]
-    n_valid = scalar_ref[1]
-    inv_two_h2 = 1.0 / (2.0 * h * h)
-
-    x_i = x_i_ref[:]
-    x_j = x_j_ref[:]
-    tile_j = x_j.shape[0]
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    d2 = (
-        jnp.sum(x_i * x_i, axis=1, keepdims=True)
-        + jnp.sum(x_j * x_j, axis=1)[None, :]
-        - 2.0 * jnp.dot(x_i, x_j.T, preferred_element_type=jnp.float32)
-    )
-    kernel = jnp.exp(-jnp.maximum(d2, 0.0) * inv_two_h2)  # (TI, TJ)
-    # zero out padded columns so they contribute to no reduction.  The
-    # iota must be INTEGER-typed: tpu.iota only admits integer results
-    # (an f32 broadcasted_iota used to lower via an implicit cast and
-    # now fails Mosaic verification), so compare in int32 and let the
-    # where() select on the bool mask.
-    col_ids = j * tile_j + jax.lax.broadcasted_iota(
-        jnp.int32, kernel.shape, dimension=1
-    )
-    kernel = jnp.where(
-        col_ids.astype(jnp.float32) < n_valid, kernel, 0.0)
-
-    d = x_i.shape[1]
-    acc_ref[:, :d] += jnp.dot(
-        kernel, -g_j_ref[:], preferred_element_type=jnp.float32
-    )
-    acc_ref[:, d:2 * d] += jnp.dot(
-        kernel, x_j, preferred_element_type=jnp.float32
-    )
-    acc_ref[:, 2 * d] += jnp.sum(kernel, axis=1)
-
-    @pl.when(j == n_j - 1)
-    def _():
-        k_dot_g = acc_ref[:, :d]
-        k_dot_x = acc_ref[:, d:2 * d]
-        ksum = acc_ref[:, 2 * d][:, None]
-        repulsion = (x_i * ksum - k_dot_x) / (h * h)
-        phi_ref[:] = (k_dot_g + repulsion) / n_valid
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def svgd_phi_streaming(particles, cost_grads, h, tile=512, interpret=False):
+@functools.partial(jax.jit, static_argnames=("tile",))
+def svgd_phi_streaming(particles, cost_grads, h, tile=512):
     """SVGD transport direction phi without materializing the kernel matrix.
 
     Parameters
     ----------
-    particles : (n, d) float32.  Any ``n`` and ``d`` are accepted: ``d`` is
-        padded to the 128-lane tile width and ``n`` to a multiple of
-        ``tile`` (padded rows are masked out of every reduction in-kernel);
-        multiples are fastest.
+    particles : (n, d) float32.  Any ``n`` is accepted: it is padded to a
+        multiple of ``tile``, and padded columns are masked out of every
+        reduction.
     cost_grads : (n, d) float32 — gradients of the COST (negative log
         density); the attraction term uses ``-cost_grads``.
     h : scalar bandwidth.
@@ -112,44 +46,38 @@ def svgd_phi_streaming(particles, cost_grads, h, tile=512, interpret=False):
     Returns phi of shape (n, d); the caller applies the stepsize/Adagrad.
     """
     n, d = particles.shape
-    d_pad = ((d + LANES - 1) // LANES) * LANES
-    if d_pad != d:
-        pad = ((0, 0), (0, d_pad - d))
-        particles = jnp.pad(particles, pad)
-        cost_grads = jnp.pad(cost_grads, pad)
+    dtype = particles.dtype
     tile = min(tile, n)
-    # pad the particle count up to a tile multiple; padded rows are masked
-    # out of every kernel reduction in-kernel (they read back as garbage phi
-    # rows that we slice away)
-    n_pad = ((n + tile - 1) // tile) * tile
-    if n_pad != n:
-        pad = ((0, n_pad - n), (0, 0))
-        particles = jnp.pad(particles, pad)
-        cost_grads = jnp.pad(cost_grads, pad)
-    grid = (n_pad // tile, n_pad // tile)
+    n_tiles = -(-n // tile)
+    pad = ((0, n_tiles * tile - n), (0, 0))
+    x_cols = jnp.pad(particles, pad).reshape(n_tiles, tile, d)
+    g_cols = jnp.pad(cost_grads, pad).reshape(n_tiles, tile, d)
+    valid = (jnp.arange(n_tiles * tile) < n).reshape(n_tiles, tile)
 
-    row_spec = pl.BlockSpec(
-        (tile, d_pad), lambda i, j, *_: (i, 0), memory_space=pltpu.VMEM
-    )
-    col_spec = pl.BlockSpec(
-        (tile, d_pad), lambda i, j, *_: (j, 0), memory_space=pltpu.VMEM
-    )
+    h = jnp.asarray(h, dtype)
+    sq_rows = jnp.sum(particles * particles, axis=1)
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[row_spec, col_spec, col_spec],
-        out_specs=row_spec,
-        scratch_shapes=[pltpu.VMEM((tile, 2 * d_pad + LANES), jnp.float32)],
+    def body(acc, cols):
+        k_dot_g, k_dot_x, ksum = acc
+        x_j, g_j, valid_j = cols
+        d2 = (
+            sq_rows[:, None]
+            + jnp.sum(x_j * x_j, axis=1)[None, :]
+            - 2.0 * jnp.dot(particles, x_j.T, preferred_element_type=dtype)
+        )
+        kernel = jnp.where(
+            valid_j[None, :], jnp.exp(-jnp.maximum(d2, 0.0) / (2.0 * h * h)),
+            0.0)
+        return (
+            k_dot_g + jnp.dot(kernel, -g_j, preferred_element_type=dtype),
+            k_dot_x + jnp.dot(kernel, x_j, preferred_element_type=dtype),
+            ksum + jnp.sum(kernel, axis=1),
+        ), None
+
+    zeros = jnp.zeros((n, d), dtype)
+    (k_dot_g, k_dot_x, ksum), _ = jax.lax.scan(
+        body, (zeros, zeros, jnp.zeros((n,), dtype)),
+        (x_cols, g_cols, valid),
     )
-    interpreter = pltpu.InterpretParams() if interpret else False
-    phi = pl.pallas_call(
-        _kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, d_pad), jnp.float32),
-        interpret=interpreter,
-    )(
-        jnp.stack([jnp.asarray(h, jnp.float32), jnp.float32(n)]),
-        particles, particles, cost_grads,
-    )
-    return phi[:n, :d]
+    repulsion = (particles * ksum[:, None] - k_dot_x) / (h * h)
+    return (k_dot_g + repulsion) / n

@@ -1,6 +1,6 @@
 """Massively parallel chains: vmap over a sharded chain axis.
 
-This module is the TPU-native replacement for the reference's sequential
+This module is the on-device replacement for the reference's sequential
 multi-chain extraction (``/root/reference/pysgmcmc/diagnostics/
 sample_chains.py:338-384``, one fresh graph + session per chain): all chains
 advance in lockstep inside a single jitted ``vmap(scan)`` program, and the
@@ -67,8 +67,8 @@ def stack_positions(position, n_chains, jitter=0.0, key=None):
 
 
 # jit programs are cached on callable identity, so building a fresh
-# vmap closure per call would recompile every time (minutes on a remote
-# TPU).  Cache runners keyed on the static configuration instead.
+# vmap closure per call would recompile every time.  Cache runners keyed
+# on the static configuration instead.
 #
 # Keys hold *weak* references to the sampler / batch_fn / mesh: ``id()``
 # keys would be unsafe (a garbage-collected object's id can be reused by a

@@ -3,11 +3,11 @@
 The reference has no distributed support at all — its "multi-chain" runner
 executes chains sequentially in fresh TF graphs
 (``/root/reference/pysgmcmc/diagnostics/sample_chains.py:369-382``).  Chain
-parallelism over a TPU mesh is therefore a new first-class component here:
-chains are embarrassingly parallel, so the natural layout is a 1-D mesh with
-the chain axis sharded across devices; pooled diagnostics (between-chain
-variance in Gelman-Rubin, pooled ESS) become XLA collectives over ICI that
-GSPMD inserts automatically from the array shardings.
+parallelism over a device mesh is therefore a new first-class component
+here: chains are embarrassingly parallel, so the natural layout is a 1-D mesh
+with the chain axis sharded across devices; pooled diagnostics
+(between-chain variance in Gelman-Rubin, pooled ESS) become XLA collectives
+that GSPMD inserts automatically from the array shardings.
 
 Examples
 --------
@@ -55,13 +55,13 @@ _DISTRIBUTED_INITIALIZED = False
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None, **kwargs):
-    """Initialize the JAX distributed runtime for a multi-host (DCN) run.
+    """Initialize the JAX distributed runtime for a multi-host run.
 
     Call once per host process *before* any other JAX call, then build the
-    mesh with :func:`multihost_mesh`.  With no arguments, JAX auto-detects
-    the cluster environment (TPU pod metadata, or the
-    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
-    environment variables).  Idempotent: a second call (or a call in an
+    mesh with :func:`multihost_mesh`.  With no arguments, the cluster is
+    read from the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID`` environment variables; without them this is a
+    single-process run and the call does nothing.  Idempotent: a second call (or a call in an
     already-initialized or single-process context) is a no-op.
 
     This is a new capability axis over the reference, which is strictly
@@ -93,16 +93,12 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
         import os
 
         # Only attempt auto-detection when the environment advertises a
-        # genuinely MULTI-process cluster: jax.distributed.initialize()
-        # can BLOCK waiting for a coordinator barrier when partial TPU
-        # metadata is visible, and single-chip TPU plugins export
-        # TPU_WORKER_HOSTNAMES=localhost — one worker is not a cluster.
+        # cluster: jax.distributed.initialize() can block waiting for a
+        # coordinator that does not exist.
         cluster = any(os.environ.get(v) for v in (
             "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
             "JAX_NUM_PROCESSES",
         ))
-        workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-        cluster = cluster or ("," in workers)
         if not cluster:
             return
     try:
@@ -139,13 +135,14 @@ def multihost_mesh(n_hosts=None, host_axis=HOST_AXIS, chain_axis=CHAIN_AXIS):
     """A 2-D ``(hosts, chips)`` mesh for multi-host chain parallelism.
 
     The outer ``host_axis`` groups each host's local devices together, so
-    any collective that partitions over it rides the slow cross-host DCN
-    links while everything inside a host stays on ICI.  Chains are
+    any collective that partitions over it rides the slower cross-host
+    network while everything inside a host stays on the host's own
+    device interconnect.  Chains are
     independent — shard their leading axis over *both* axes
     (``PartitionSpec((host_axis, chain_axis))``, see
     :func:`chain_sharding`) and the hot loop stays collective-free; only
     pooled diagnostics (R-hat between-chain variance, pooled ESS) ever cross
-    DCN, and those run once per analysis, not per step.
+    hosts, and those run once per analysis, not per step.
 
     ``n_hosts`` defaults to ``jax.process_count()`` (the real topology in a
     :func:`initialize_multihost` run).  Passing it explicitly lets a

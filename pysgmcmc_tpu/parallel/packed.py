@@ -1,26 +1,27 @@
-"""Packed flat state for the sampling-phase hot loop.
+"""Packed multi-chain state for the sampling and burn-in hot loops.
 
-TPU physical layout pads the LAST dimension of every array up to 128 lanes
-(and the second-to-last up to the sublane tile), so streaming a stacked
-parameter pytree with leaves like ``(chains, 50, 50)`` or ``(chains, 50, 2)``
-moves 3-70x more HBM bytes than the logical element count.  Since the
-sampler update is a pure elementwise pass, its natural layout is a single
-dense ``(n_chains, width)`` matrix: each leaf occupies a 128-aligned lane
-*slot*, padding is ~10% (vs up to 70x), and one fused kernel
-(:func:`pysgmcmc_tpu.ops.slim_update.slim_sghmc_update`) serves the whole
-update with in-kernel RNG.
+A stacked parameter pytree with leaves like ``(chains, 50, 50)`` or
+``(chains, 50, 2)`` can also be held as one dense matrix, so the sampler's
+elementwise update runs over a single array instead of one small array per
+leaf.  Two layouts are provided:
 
-The gradient still wants pytree leaves (the MXU matmuls run on the
-``(50, 50)`` shapes), so each step unpacks ``theta`` into compute-dtype
-leaves — a single fused slice+reshape+cast XLA pass that replaces the
-bf16 cast the mixed-precision path already paid — and packs the (bfloat16)
-gradients back.
+- *slots* (:func:`make_pack_spec`): ``(n_chains, width)``, each leaf in a
+  128-aligned column slot;
+- *lanes* (:func:`make_lanes_spec`): ``(rows, n_chains)``, chains on the
+  minor axis and each leaf on an 8-aligned run of rows.
 
-This module is layout plumbing + the packed sampling-phase driver
-:func:`sample_chain_packed`, the throughput path behind ``bench.py``.  The
-pytree path (:func:`pysgmcmc_tpu.samplers.base.sample_chain`) remains the
-reference implementation; parity is pinned bitwise via noise injection in
-``tests/parallel/test_packed.py``.
+The gradient still wants pytree leaves, so each step unpacks ``theta``
+into compute-dtype leaves for the vmapped gradient and packs the gradients
+back.
+
+The update rules themselves are the plain ``jnp`` functions
+:func:`sghmc_update`, :func:`sgld_update`, :func:`psgld_update`,
+:func:`rsghmc_update`, :func:`sgnht_update` and
+:func:`adaptive_burnin_update`.  They take the standard-normal draw as an
+argument, so tests compare them with the pytree samplers' ``step`` given
+identical noise.  The pytree path
+(:func:`pysgmcmc_tpu.samplers.base.sample_chain`) remains the reference
+implementation.
 
 Examples
 --------
@@ -45,15 +46,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pysgmcmc_tpu.ops.fused_update import LANES, pad_dim
-from pysgmcmc_tpu.ops.slim_update import (
-    slim_psgld_update,
-    slim_rsghmc_update,
-    slim_sghmc_update,
-    slim_sghmc_update_tree,
-    slim_sgld_update,
-    slim_sgnht_update,
-)
 from pysgmcmc_tpu.samplers.psgld import PSGLDSampler, PSGLDState
 from pysgmcmc_tpu.samplers.relativistic_sghmc import (
     RelativisticSGHMCSampler,
@@ -63,107 +55,136 @@ from pysgmcmc_tpu.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu.samplers.sgld import SGLDSampler, SGLDState
 from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler, SGNHTState
 
-# Upper bound on steps advanced by ONE multi-step kernel launch.  The
-# per-step schedule table (ops/fused_step._per_step_table) costs one
-# 128-lane f32 SMEM row per step (512 B); 512 steps = 256 KB of the
-# chip's 1 MiB SMEM, leaving room for the int-scalar table and compiler
-# prefetch buffers.  Drivers asked for longer segments (e.g. a whole
-# 3000-step burn-in in one launch) chunk at this bound.
-MAX_STEPS_PER_LAUNCH = 512
-
-# Smallest chain count the fused kernels compile for on real TPUs: Mosaic
-# rejects sub-sublane (esp. 1-row) chain blocks with "Not implemented:
-# Offset change" on the per-chain cost reduction (measured on v5e; 4 rows
-# compile, 1 does not — 8 is the f32 sublane tile and a safe floor).  The
-# fused drivers transparently pad smaller chain counts up to this and
-# slice the results back.
-MIN_FUSED_CHAINS = 8
+LANES = 128
 
 
-def _effective_block(block_chains, n_chains, interpret=False):
-    """The kernel grid block: caller's ``block_chains`` clamped to a
-    divisor of ``n_chains``, raised to the Mosaic floor on the compile
-    path.
-
-    Sub-sublane blocks fail TPU compilation even when ``n_chains`` is
-    large (a caller passing ``block_chains=1`` gets 1-row grid
-    instances), so when the divide-down lands below
-    :data:`MIN_FUSED_CHAINS` the block is raised to the smallest divisor
-    of ``n_chains`` at or above it — correctness over the caller's
-    tuning knob (the kernels' per-chain streams are chain-index keyed,
-    so the block size never changes unpaired trajectories).  Interpret
-    mode has no Mosaic and keeps the caller's block: the floor is purely
-    a compile-time constraint, and raising it would multiply the
-    interpret path's (already slow) per-instance work."""
-    block = min(block_chains, n_chains)
-    while n_chains % block:
-        block //= 2
-    if not interpret and block < MIN_FUSED_CHAINS <= n_chains:
-        for cand in range(MIN_FUSED_CHAINS, n_chains + 1):
-            if n_chains % cand == 0:
-                return cand
-    return block
+def pad_dim(dim):
+    """Round ``dim`` up to a multiple of the 128-column slot width."""
+    return ((dim + LANES - 1) // LANES) * LANES
 
 
-def _pad_chain_axis(tree, n_chains, n_to):
-    """Pad every per-chain leaf (leading axis ``n_chains``) to ``n_to``
-    chains by replicating the last chain.  Padded chains are discarded by
-    :func:`_slice_chain_axis`; real chains compute independently (the
-    kernels' per-chain PRNG streams are keyed by absolute chain index,
-    which padding-at-the-end does not shift)."""
-
-    def pad(leaf):
-        leaf = jnp.asarray(leaf)
-        if leaf.ndim >= 1 and leaf.shape[0] == n_chains:
-            tail = jnp.broadcast_to(
-                leaf[-1:], (n_to - n_chains,) + leaf.shape[1:])
-            return jnp.concatenate([leaf, tail], axis=0)
-        return leaf
-
-    return jax.tree_util.tree_map(pad, tree)
+#  Update rules -----------------------------------------------------------
+#
+# Each mirrors the matching pytree sampler's ``step`` term by term (same
+# operation order, so equal inputs give equal outputs).  ``grad`` is the
+# cost gradient without the folded Gaussian prior; ``eta`` is the
+# standard-normal draw.  Arithmetic runs in float32; state arrays may be
+# stored narrower and are cast on the way in.
 
 
-def _slice_chain_axis(tree, n_from, n_chains):
-    """Inverse of :func:`_pad_chain_axis`: keep the first ``n_chains``
-    rows of every leaf whose leading axis is ``n_from``."""
+def sghmc_update(theta, v, grad, minv, eps, eta, mdecay, scale_grad,
+                 prior_scale=0.0):
+    """SGHMC step (``samplers/sghmc.py``) -> ``(theta, v)`` in float32."""
+    eps_scaled = eps / jnp.sqrt(jnp.asarray(scale_grad, jnp.float32))
+    g = grad.astype(jnp.float32) + prior_scale * theta
+    minv = minv.astype(jnp.float32)
+    v = v.astype(jnp.float32)
+    sigma = jnp.sqrt(jnp.maximum(
+        2.0 * eps_scaled**2 * mdecay * minv - eps_scaled**4, 1e-16))
+    v = v - eps**2 * minv * g - mdecay * v + sigma * eta
+    return theta + v, v
 
-    def take(leaf):
-        if jnp.ndim(leaf) >= 1 and jnp.shape(leaf)[0] == n_from:
-            return leaf[:n_chains]
-        return leaf
 
-    return jax.tree_util.tree_map(take, tree)
+def sgld_update(theta, grad, minv, eps, eta, a_coef, scale_grad,
+                prior_scale=0.0):
+    """SGLD step (``samplers/sgld.py``) -> ``theta``."""
+    g = grad.astype(jnp.float32) + prior_scale * theta
+    minv = minv.astype(jnp.float32)
+    sg = jnp.asarray(scale_grad, jnp.float32)
+    c = jnp.asarray(1e-16, jnp.float32)
+    sigma = jnp.sqrt(jnp.maximum(
+        2.0 * eps * ((minv * a_coef) / (sg + 2.0 * jnp.sign(sg) * c + c)),
+        0.0))
+    return theta - eps * minv * a_coef * g + sigma * eta
 
 
-def resolve_noise_impl(noise_impl, pair_dots=False, interpret=False):
-    """Resolve ``noise_impl='auto'`` to the generator a fused driver uses.
+def psgld_update(theta, v, grad, eps, eta, alpha, lambda_reg, scale_grad,
+                 prior_scale=0.0):
+    """pSGLD step (``samplers/psgld.py``) -> ``(theta, v)``."""
+    g = grad.astype(jnp.float32) + prior_scale * theta
+    v = alpha * v.astype(jnp.float32) + (1.0 - alpha) * g * g
+    precond = 1.0 / (lambda_reg + jnp.sqrt(jnp.maximum(v, 0.0)))
+    sigma = jnp.sqrt(jnp.maximum(eps * precond / scale_grad, 0.0))
+    return theta - 0.5 * eps * precond * g + sigma * eta, v
 
-    The single source of truth for the shipped default: the MXU-CLT
-    Hadamard mixer (measured fastest — docs/performance.md "MXU-CLT
-    noise") everywhere except the paired kernels, which support
-    Box-Muller only.  Benchmark writers record this value in their
-    artifacts and ``tests/test_benchmark_results.py`` pins committed
-    artifacts against it, so a default change can never silently leave
-    headline artifacts describing a stale code path (the round-3/4
-    stale-artifact cycle).
 
-    Under ``interpret=True`` (the CPU test/debug path — no TPU PRNG, all
-    random bits read as zero) ``'auto'`` resolves to Box-Muller, whose
-    zero-bit output is *zero noise*: the convention every interpret-mode
-    parity test and CPU model-training test relies on.  The CLT
-    generator's zero-bit output is the constant ``-sqrt(12n)/2`` on lane
-    0 (~-19.6 at n=128) — under interpret it would inject that as a
-    persistent per-step bias and wreck CPU training runs.  Explicitly
-    passing ``noise_impl='hadamard_clt'`` still exercises the CLT path
-    in interpret mode (the ops tests pin its zero-bit constant).
+def rsghmc_update(theta, p, grad, eps, eta, d_coef, bhat, mass,
+                  speed_of_light, prior_scale=0.0):
+    """Relativistic SGHMC step (``samplers/relativistic_sghmc.py``)
+    -> ``(theta, p)``."""
+    g = -(grad.astype(jnp.float32) + prior_scale * theta)
+    m, c = mass, speed_of_light
+
+    def velocity(pp):
+        return eps * pp / (m * jnp.sqrt(pp * pp / (m**2 * c**2) + 1.0))
+
+    p = p.astype(jnp.float32)
+    noise_scale = jnp.sqrt(eps * (2.0 * d_coef - eps * bhat))
+    p = p + eps * g + noise_scale * eta - d_coef * velocity(p)
+    return theta + velocity(p), p
+
+
+def sgnht_update(theta, p, grad, xi, eps, eta, a_diff, scale_grad,
+                 prior_scale=0.0):
+    """SGNHT momentum and position step (``samplers/sgnht.py``)
+    -> ``(theta, p)``.  The thermostat update needs the kinetic energy
+    summed over each chain's real parameters, which depends on the
+    layout, so the caller does it."""
+    g = grad.astype(jnp.float32) + prior_scale * theta
+    sigma = jnp.sqrt(2.0 * a_diff * eps / jnp.asarray(scale_grad, jnp.float32))
+    p = p.astype(jnp.float32)
+    p = p - xi * eps * p - eps * g + sigma * eta
+    return theta + eps * p, p
+
+
+def adaptive_burnin_update(theta, v, tau, g, v_hat, grad, eps, eta,
+                           scale_grad, prior_scale=0.0, mdecay=None,
+                           a_coef=None):
+    """One self-tuning burn-in step (``samplers/_adaptive.py``) of SGHMC
+    (``mdecay`` given) or SGLD (``a_coef`` given).
+
+    Returns ``(theta, v, tau, g, v_hat, minv)``; ``v`` is ``None`` for
+    SGLD and ``minv`` is the mass-matrix inverse this step used.
     """
-    if noise_impl == "auto":
-        return "box_muller" if (pair_dots or interpret) else "hadamard_clt"
-    return noise_impl
+    small = 1e-16
+    gg = grad.astype(jnp.float32) + prior_scale * theta
+    sqrt_vhat = jnp.sqrt(jnp.maximum(v_hat, 0.0))
+    minv = 1.0 / (sqrt_vhat + 2.0 * jnp.sign(sqrt_vhat) * small + small)
+    denom = v_hat + 2.0 * jnp.sign(v_hat) * small + small
+    tau_new = tau + (-g * g * tau) / denom + 1.0
+    r = 1.0 / (tau + 1.0)
+    g = g - r * g + r * gg
+    v_hat = v_hat - r * v_hat + r * gg * gg
+    if mdecay is not None:
+        theta, v = sghmc_update(theta, v, gg, minv, eps, eta, mdecay,
+                                scale_grad)
+    else:
+        theta = sgld_update(theta, gg, minv, eps, eta, a_coef, scale_grad)
+    return theta, v, tau_new, g, v_hat, minv
+
+
+_KINDS = {
+    "sghmc": SGHMCSampler, "sgld": SGLDSampler, "psgld": PSGLDSampler,
+    "rsghmc": RelativisticSGHMCSampler, "sgnht": SGNHTSampler,
+}
+
+
+def _sampler_kind(sampler, driver, kinds):
+    for kind in kinds:
+        if isinstance(sampler, _KINDS[kind]):
+            return kind
+    raise NotImplementedError(
+        "{} supports {}; got {!r}".format(
+            driver, ", ".join(_KINDS[k].__name__ for k in kinds),
+            type(sampler).__name__)
+    )
+
+
+#  Layouts -----------------------------------------------------------------
 
 
 class PackSpec(NamedTuple):
-    """Layout of a pytree packed into 128-aligned lane slots."""
+    """Layout of a pytree packed into 128-aligned column slots."""
 
     treedef: Any
     shapes: Any      # tuple of per-leaf shapes (without the chain axis)
@@ -185,7 +206,7 @@ def make_pack_spec(template):
 
 
 def pack_mask(spec, dtype=jnp.float32):
-    """(1, width) mask: 1 on real lanes, 0 on slot padding."""
+    """(1, width) mask: 1 on real columns, 0 on slot padding."""
     mask = np.zeros((1, spec.width), np.float32)
     for off, size in zip(spec.offsets, spec.sizes):
         mask[0, off:off + size] = 1.0
@@ -226,14 +247,14 @@ def _schedule_eps(sampler, schedule_state, step):
 def _shared_schedule_state(states, driver="this driver"):
     """Collapse a stacked per-chain schedule state to the shared one.
 
-    The packed/stacked/fused drivers advance all chains at ONE stepsize,
-    so a stacked schedule state is only admissible when every chain
-    carries the same values.  Heterogeneous concrete states (e.g. a
-    per-chain :class:`~pysgmcmc_tpu.stepsize_schedules.
-    TracedStepsizeSchedule` sweep) raise instead of silently running every
-    chain at chain 0's stepsize; under tracing the values cannot be
-    inspected — use :func:`sample_chain_lanes` (native per-chain eps) or
-    the pytree path for stepsize sweeps.
+    The packed/stacked drivers advance all chains at ONE stepsize, so a
+    stacked schedule state is only admissible when every chain carries the
+    same values.  Heterogeneous concrete states (e.g. a per-chain
+    :class:`~pysgmcmc_tpu.stepsize_schedules.TracedStepsizeSchedule`
+    sweep) raise instead of silently running every chain at chain 0's
+    stepsize; under tracing the values cannot be inspected — use
+    :func:`sample_chain_lanes` (native per-chain eps) or the pytree path
+    for stepsize sweeps.
     """
     schedule_state = states.schedule_state
     leaves = jax.tree_util.tree_leaves(schedule_state)
@@ -264,9 +285,9 @@ def _lanes_eps_fn(sampler, states, n_chains):
     leading ``n_chains`` axis — the
     :class:`~pysgmcmc_tpu.stepsize_schedules.TracedStepsizeSchedule`
     sweep pattern) this returns a ``(1, n_chains)`` per-chain stepsize
-    row each step; the slim kernels broadcast it across each chain's
-    parameter rows, so one compiled program advances every chain at its
-    own stepsize.  Otherwise a scalar, exactly as before.
+    row each step, which broadcasts across each chain's parameter rows, so
+    one compiled program advances every chain at its own stepsize.
+    Otherwise a scalar.
     """
     ss = states.schedule_state
     leaves = jax.tree_util.tree_leaves(ss)
@@ -291,32 +312,22 @@ def _lanes_eps_fn(sampler, states, n_chains):
     return eps_of
 
 
-def _base_seed(key):
-    return jax.random.randint(
-        key, (), jnp.iinfo(jnp.int32).min // 2,
-        jnp.iinfo(jnp.int32).max // 2, jnp.int32,
-    )
-
-
 def _run_sharded(body, states, key, mesh, axis_name):
     """shard_map ``body(states, key) -> chain-leading outputs`` over a mesh.
 
-    The mesh composition layer for the kernel fast paths: chains are pure
-    SPMD (zero collectives in the hot loop), so the whole driver body —
-    packing, per-step gradient, Pallas update kernel — runs replicated on
-    every device over its local slice of chains.  This is what scales the
-    single-chip kernel throughput to N chips.
+    Chains are pure SPMD (zero collectives in the hot loop), so the whole
+    driver body — packing, per-step gradient, update — runs on every
+    device over its local slice of chains.
 
     Every leaf of ``states`` is normalized to carry a leading chain axis
     (scalars broadcast), so ONE PartitionSpec prefix shards the entire
     state/outputs pytree.  The PRNG key is replicated in and folded with
     the device's mesh coordinates inside the body, so shards draw
     decorrelated streams.  Outputs are therefore deterministic in
-    (inputs, mesh) but not bitwise-equal to the unsharded run — in-kernel
-    PRNG streams are block-local by construction.  (The pytree path via
-    :func:`pysgmcmc_tpu.parallel.chains.run_chains` does give bitwise
-    sharded == unsharded; statistical parity of this path is pinned in
-    ``tests/parallel/test_sharded_kernels.py``.)
+    (inputs, mesh) but not bitwise-equal to the unsharded run.  (The
+    pytree path via :func:`pysgmcmc_tpu.parallel.chains.run_chains` does
+    give bitwise sharded == unsharded; statistical parity of this path is
+    pinned in ``tests/parallel/test_sharded_kernels.py``.)
     """
     from jax.sharding import PartitionSpec
 
@@ -327,7 +338,7 @@ def _run_sharded(body, states, key, mesh, axis_name):
     n_dev = mesh.devices.size
     if n_chains % n_dev:
         raise ValueError(
-            "sharded kernel driver: n_chains ({}) must be divisible by "
+            "sharded driver: n_chains ({}) must be divisible by "
             "the mesh size ({})".format(n_chains, n_dev)
         )
 
@@ -347,15 +358,10 @@ def _run_sharded(body, states, key, mesh, axis_name):
             key = jax.random.fold_in(key, jax.lax.axis_index(ax))
         return body(states, key)
 
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # annotation, which the checker would reject; the body is pure SPMD
-    # over the chain axis with every output chain-leading, so the check
-    # adds nothing here
     return jax.shard_map(
         shard_body, mesh=mesh,
         in_specs=(spec, PartitionSpec()),
         out_specs=spec,
-        check_vma=False,
     )(states, key)
 
 
@@ -376,12 +382,11 @@ def _align(x, m):
 def make_lanes_spec(template, row_align=8, total_align=None):
     """Slot layout for :func:`pack_lanes` from a single-chain pytree.
 
-    Each leaf occupies a run of rows aligned to the float32 sublane tile
-    (8); the total is aligned up to ``total_align`` so the update kernel
-    gets power-of-two blocking freedom.  ``total_align=None`` picks 256
-    for real (network-sized) states but only the sublane tile for tiny
-    ones (e.g. the 1-2 dim objective targets of the ESS sweeps, where a
-    256-row floor would be 100x padding).
+    Each leaf occupies a run of rows aligned to ``row_align`` (8); the
+    total is aligned up to ``total_align``.  ``total_align=None`` picks 256
+    for network-sized states but only ``row_align`` for tiny ones (e.g.
+    the 1-2 dim objective targets of the ESS sweeps, where a 256-row floor
+    would be 100x padding).
     """
     leaves, treedef = jax.tree_util.tree_flatten(template)
     shapes = tuple(tuple(leaf.shape) for leaf in leaves)
@@ -400,10 +405,9 @@ def make_lanes_spec(template, row_align=8, total_align=None):
 def pack_lanes(spec, stacked, dtype=jnp.float32):
     """Stacked pytree (leaves ``(n, *shape)``) -> dense ``(rows, n)``.
 
-    The chain axis lands on the minor (128-lane) dimension — the layout the
-    XLA compiler itself picks for the sampler-state tensors of this program
-    (observed ``{0,2,1:T(8,128)}`` on the flagship HLO): fully dense, no
-    tile padding, so elementwise update traffic is the logical byte count.
+    The chain axis lands on the minor dimension, so the elementwise update
+    streams one dense matrix with no per-leaf padding beyond the 8-row
+    slots.
     """
     leaves = jax.tree_util.tree_flatten(stacked)[0]
     n = leaves[0].shape[0]
@@ -435,6 +439,27 @@ def unpack_lanes(spec, flat, dtype=None):
     return jax.tree_util.tree_unflatten(spec.treedef, leaves)
 
 
+def _vmapped_grad(sampler, batch_fn):
+    return jax.vmap(
+        lambda pos, batch: jax.value_and_grad(sampler.cost_fn)(pos, batch)
+        if batch is not None
+        else jax.value_and_grad(sampler.cost_fn)(pos),
+        in_axes=(0, 0 if batch_fn is not None else None),
+    )
+
+
+def _swap_chain_axis(positions, costs):
+    """(n_samples, n_chains, ...) scan outputs -> chain-leading."""
+    if positions is not None:
+        positions = jax.tree_util.tree_map(
+            lambda l: jnp.swapaxes(l, 0, 1), positions
+        )
+    return positions, jnp.swapaxes(costs, 0, 1)
+
+
+#  Drivers -------------------------------------------------------------------
+
+
 def sample_chain_lanes(
     sampler,
     states,
@@ -443,48 +468,31 @@ def sample_chain_lanes(
     batch_fn=None,
     keep_every=1,
     compute_dtype=jnp.bfloat16,
-    backend="pallas",
     state_dtype=jnp.float32,
     collect_positions=True,
     mesh=None,
     axis_name=None,
-    interpret=False,
 ):
     """Sampling-phase driver with chains-on-lanes packed state.
 
-    The layout-aware throughput path, built on compiler ground truth: the
-    flagship program's optimized HLO stores every f32 state tensor
-    chains-minor (``{0,2,1:T(8,128)}`` — chains on the 128-lane axis, zero
-    tile padding) and relayouts to row-major only around the MXU matmuls.
-    A Pallas call, however, forces the default row-major layout on its
-    operands, so feeding it the stacked pytree inserts relayout copies of
-    the entire state every step (measured 2.3x slower).  Packing the state
-    as a dense ``(rows, n_chains)`` matrix — chains on lanes, leaves on
-    8-aligned row slots — gives the kernel the dense layout natively:
+    The state is packed as a dense ``(rows, n_chains)`` matrix — chains on
+    the minor axis, leaves on 8-aligned row slots:
 
     - ``theta``/``v``/``minv`` live packed across the whole scan (packed
       once, outside).
     - Each step unpacks ``theta`` to ``compute_dtype`` row-major leaves for
-      the vmapped gradient (transpose+cast: the analog of the bf16 cast
-      pass the mixed-precision path already pays) and packs the bfloat16
-      gradients back (the analog of the f32 gradient relayout XLA already
-      inserts — at half the bytes).
-    - The fused kernel (:func:`pysgmcmc_tpu.ops.slim_update.
-      slim_sghmc_update`) advances ``(theta, v)`` in one dense VMEM pass
-      with in-kernel RNG — no threefry materialization (measured 1.9 ms of
-      the 5.5 ms step).
+      the vmapped gradient and packs the gradients back.
+    - The update is one elementwise pass over the packed matrices with
+      threefry noise.
 
     Row-slot padding needs no mask: padding rows are never unpacked, and
     their drift under the (minv=0) noise floor is a bounded ~1e-8 random
     walk.
 
-    ``backend="xla"`` is the same schedule with jnp math + threefry noise
-    (bitwise-testable on CPU).  ``mesh`` shards the chain axis over a
-    device mesh via :func:`_run_sharded` — the whole driver (gradient,
-    pack, kernel) runs SPMD per device, scaling kernel throughput to N
-    chips with zero hot-loop collectives.  Returns
-    ``(states, positions, costs)`` shaped like
-    :func:`pysgmcmc_tpu.samplers.base.sample_chain`.
+    ``mesh`` shards the chain axis over a device mesh via
+    :func:`_run_sharded` — the whole driver runs SPMD per device with zero
+    hot-loop collectives.  Returns ``(states, positions, costs)`` shaped
+    like :func:`pysgmcmc_tpu.samplers.base.sample_chain`.
     """
     if mesh is not None:
         from pysgmcmc_tpu.parallel.mesh import CHAIN_AXIS
@@ -493,47 +501,26 @@ def sample_chain_lanes(
             return sample_chain_lanes(
                 sampler, local_states, local_key, n_samples,
                 batch_fn=batch_fn, keep_every=keep_every,
-                compute_dtype=compute_dtype, backend=backend,
-                state_dtype=state_dtype,
-                collect_positions=collect_positions, interpret=interpret,
+                compute_dtype=compute_dtype, state_dtype=state_dtype,
+                collect_positions=collect_positions,
             )
 
         return _run_sharded(
             body, states, key, mesh, axis_name or CHAIN_AXIS)
 
-    if isinstance(sampler, SGHMCSampler):
-        kind = "sghmc"
-    elif isinstance(sampler, SGLDSampler):
-        kind = "sgld"
-    elif isinstance(sampler, PSGLDSampler):
-        kind = "psgld"
-    elif isinstance(sampler, RelativisticSGHMCSampler):
-        kind = "rsghmc"
-    elif isinstance(sampler, SGNHTSampler):
-        kind = "sgnht"
-    else:
-        raise NotImplementedError(
-            "sample_chain_lanes supports the SGHMC, SGLD, PSGLD, "
-            "RelativisticSGHMC and SGNHT samplers; got {!r}".format(
-                type(sampler).__name__)
-        )
-    is_sghmc = kind == "sghmc"
-    if backend not in ("pallas", "xla"):
-        raise ValueError("backend must be 'pallas' or 'xla'")
+    kind = _sampler_kind(
+        sampler, "sample_chain_lanes",
+        ("sghmc", "sgld", "psgld", "rsghmc", "sgnht"))
 
     n_chains = jax.tree_util.tree_leaves(states.position)[0].shape[0]
-    if backend == "pallas" and n_chains % LANES != 0:
-        # the slim kernels need 128-aligned chain lanes; small or odd
-        # chain counts run the (identical-math) jnp path instead
-        backend = "xla"
     template = jax.tree_util.tree_map(lambda l: l[0], states.position)
     spec = make_lanes_spec(template)
 
     theta = pack_lanes(spec, states.position)
     # state_dtype=bfloat16 keeps the momentum/accumulator and the frozen
-    # mass-matrix inverse in bf16 HBM (update arithmetic stays f32 in
-    # VMEM): halves their traffic for an O(2^-8) relative rounding — far
-    # below the injected sampling noise (moments pinned in tests).
+    # mass-matrix inverse in bf16 (update arithmetic stays f32): halves
+    # their traffic for an O(2^-8) relative rounding — far below the
+    # injected sampling noise (moments pinned in tests).
     if kind in ("sghmc", "rsghmc", "sgnht"):
         v = pack_lanes(spec, states.momentum, dtype=state_dtype)
     elif kind == "psgld":
@@ -558,19 +545,9 @@ def sample_chain_lanes(
     else:
         xi = None
 
-    grad_fn = jax.vmap(
-        lambda pos, batch: jax.value_and_grad(sampler.cost_fn)(pos, batch)
-        if batch is not None
-        else jax.value_and_grad(sampler.cost_fn)(pos),
-        in_axes=(0, 0 if batch_fn is not None else None),
-    )
-
-    key, key_seed = jax.random.split(key)
-    base_seed = _base_seed(key_seed)
+    grad_fn = _vmapped_grad(sampler, batch_fn)
     scale_grad = getattr(sampler, "scale_grad", 1.0)
     prior_scale = getattr(sampler, "gaussian_prior_scale", 0.0)
-    mdecay = sampler.mdecay if is_sghmc else None
-    a_coef = sampler.A if kind == "sgld" else None
     eps_of = _lanes_eps_fn(sampler, states, n_chains)
     step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
 
@@ -589,104 +566,32 @@ def sample_chain_lanes(
             spec, grads, dtype=jax.tree_util.tree_leaves(grads)[0].dtype
         )
         eps = eps_of(step)
-        seed = base_seed + step.astype(jnp.int32)
-        if backend == "pallas" and is_sghmc:
-            theta, v = slim_sghmc_update(
-                theta, v, grad_flat, minv, None, eps, seed,
-                mdecay=mdecay, scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        elif backend == "pallas" and kind == "sgld":
-            theta = slim_sgld_update(
-                theta, grad_flat, minv, None, eps, seed,
-                a_coef=float(a_coef), scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        elif backend == "pallas" and kind == "sgnht":
-            theta, v = slim_sgnht_update(
-                theta, v, grad_flat, None, xi, eps, seed,
-                a_diff=sampler.a_diff, scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-            sumsq = jnp.sum(
-                jnp.square(v.astype(jnp.float32) * rowmask), axis=0)
-            xi = xi + eps * (sumsq.reshape(1, n_chains) / n_dim - 1.0)
-        elif backend == "pallas" and kind == "psgld":
-            theta, v = slim_psgld_update(
-                theta, v, grad_flat, None, eps, seed,
-                alpha=sampler.alpha, lambda_reg=sampler.lambda_reg,
-                scale_grad=scale_grad, prior_scale=prior_scale,
-                interpret=interpret,
-            )
-        elif backend == "pallas":
-            theta, v = slim_rsghmc_update(
-                theta, v, grad_flat, None, eps, seed,
-                d_coef=sampler.D, bhat=sampler.Bhat, mass=sampler.mass,
-                speed_of_light=sampler.speed_of_light,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        elif is_sghmc:
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            eps_scaled = eps / jnp.sqrt(jnp.asarray(scale_grad, jnp.float32))
-            g = grad_flat.astype(jnp.float32) + prior_scale * theta
-            minv32 = minv.astype(jnp.float32)
-            v32 = v.astype(jnp.float32)
-            sigma = jnp.sqrt(jnp.maximum(
-                2.0 * eps_scaled**2 * mdecay * minv32 - eps_scaled**4, 1e-16
-            ))
-            v32 = v32 - eps**2 * minv32 * g - mdecay * v32 + sigma * eta
-            theta = theta + v32
-            v = v32.astype(state_dtype)
+        key, key_noise = jax.random.split(key)
+        eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
+        if kind == "sghmc":
+            theta, v = sghmc_update(
+                theta, v, grad_flat, minv, eps, eta, sampler.mdecay,
+                scale_grad, prior_scale)
         elif kind == "sgld":
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            g = grad_flat.astype(jnp.float32) + prior_scale * theta
-            minv32 = minv.astype(jnp.float32)
-            sigma = jnp.sqrt(jnp.maximum(
-                2.0 * eps * minv32 * a_coef / scale_grad, 0.0))
-            theta = theta - eps * minv32 * a_coef * g + sigma * eta
+            theta = sgld_update(
+                theta, grad_flat, minv, eps, eta, sampler.A, scale_grad,
+                prior_scale)
+        elif kind == "psgld":
+            theta, v = psgld_update(
+                theta, v, grad_flat, eps, eta, sampler.alpha,
+                sampler.lambda_reg, scale_grad, prior_scale)
         elif kind == "rsghmc":
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            g = -(grad_flat.astype(jnp.float32) + prior_scale * theta)
-            m, c = sampler.mass, sampler.speed_of_light
-            p32 = v.astype(jnp.float32)
-
-            def vel(pp):
-                return eps * pp / (m * jnp.sqrt(
-                    pp * pp / (m**2 * c**2) + 1.0))
-
-            noise_scale = jnp.sqrt(jnp.maximum(
-                eps * (2.0 * sampler.D - eps * sampler.Bhat), 0.0))
-            p32 = p32 + eps * g + noise_scale * eta \
-                - sampler.D * vel(p32)
-            theta = theta + vel(p32)
-            v = p32.astype(state_dtype)
-        elif kind == "sgnht":
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            g = grad_flat.astype(jnp.float32) + prior_scale * theta
-            sigma = jnp.sqrt(jnp.maximum(
-                2.0 * sampler.a_diff * eps / scale_grad, 0.0))
-            p32 = v.astype(jnp.float32)
-            p32 = p32 - xi * eps * p32 - eps * g + sigma * eta
-            theta = theta + eps * p32
-            sumsq = jnp.sum(jnp.square(p32 * rowmask), axis=0)
-            xi = xi + eps * (sumsq.reshape(1, n_chains) / n_dim - 1.0)
-            v = p32.astype(state_dtype)
+            theta, v = rsghmc_update(
+                theta, v, grad_flat, eps, eta, sampler.D, sampler.Bhat,
+                sampler.mass, sampler.speed_of_light, prior_scale)
         else:
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            g = grad_flat.astype(jnp.float32) + prior_scale * theta
-            v32 = sampler.alpha * v.astype(jnp.float32) \
-                + (1.0 - sampler.alpha) * g * g
-            precond = 1.0 / (sampler.lambda_reg + jnp.sqrt(
-                jnp.maximum(v32, 0.0)))
-            sigma = jnp.sqrt(jnp.maximum(
-                eps * precond / scale_grad, 0.0))
-            theta = theta - 0.5 * eps * precond * g + sigma * eta
-            v = v32.astype(state_dtype)
+            theta, v = sgnht_update(
+                theta, v, grad_flat, xi, eps, eta, sampler.a_diff,
+                scale_grad, prior_scale)
+            sumsq = jnp.sum(jnp.square(v * rowmask), axis=0)
+            xi = xi + eps * (sumsq.reshape(1, n_chains) / n_dim - 1.0)
+        if v is not None:
+            v = v.astype(state_dtype)
         return (theta, v, xi, key, step + 1), cost
 
     def thinned(carry, _):
@@ -694,435 +599,31 @@ def sample_chain_lanes(
         out = unpack_lanes(spec, carry[0]) if collect_positions else None
         return carry, (out, costs[-1])
 
-    (theta, v, xi, _, step), (positions, costs) = jax.lax.scan(
+    (theta, v, xi, _, _), (positions, costs) = jax.lax.scan(
         thinned, (theta, v, xi, key, step0), None, length=n_samples
     )
 
-    if is_sghmc:
+    common = dict(
+        position=unpack_lanes(spec, theta),
+        step=states.step + n_samples * keep_every,
+        schedule_state=states.schedule_state,
+    )
+    if kind == "sghmc":
         new_states = SGHMCState(
-            position=unpack_lanes(spec, theta),
             momentum=unpack_lanes(spec, v, jnp.float32),
-            stats=states.stats,
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
+            stats=states.stats, **common)
     elif kind == "psgld":
-        new_states = PSGLDState(
-            position=unpack_lanes(spec, theta),
-            v=unpack_lanes(spec, v, jnp.float32),
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
+        new_states = PSGLDState(v=unpack_lanes(spec, v, jnp.float32), **common)
     elif kind == "rsghmc":
         new_states = RelativisticSGHMCState(
-            position=unpack_lanes(spec, theta),
-            momentum=unpack_lanes(spec, v, jnp.float32),
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
+            momentum=unpack_lanes(spec, v, jnp.float32), **common)
     elif kind == "sgnht":
         new_states = SGNHTState(
-            position=unpack_lanes(spec, theta),
             momentum=unpack_lanes(spec, v, jnp.float32),
-            xi=xi.reshape(n_chains),
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
+            xi=xi.reshape(n_chains), **common)
     else:
-        new_states = SGLDState(
-            position=unpack_lanes(spec, theta),
-            stats=states.stats,
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    if positions is not None:
-        positions = jax.tree_util.tree_map(
-            lambda l: jnp.swapaxes(l, 0, 1), positions
-        )
-    costs = jnp.swapaxes(costs, 0, 1)
-    return new_states, positions, costs
-
-
-def sample_chain_fused(
-    sampler,
-    states,
-    key,
-    n_samples,
-    x,
-    y,
-    batch_size=20,
-    keep_every=1,
-    block_chains=64,
-    state_dtype=jnp.bfloat16,
-    collect_positions=True,
-    mesh=None,
-    axis_name=None,
-    multistep=False,
-    pair_dots=False,
-    noise_impl="auto",
-    interpret=False,
-):
-    """Sampling-phase driver over the flash-SGHMC fused step.
-
-    The whole per-step computation — forward, likelihood, backward, noise,
-    update — runs inside ONE Pallas kernel
-    (:func:`pysgmcmc_tpu.ops.fused_step.fused_bnn_step`); the only
-    per-step XLA ops are the threefry window draw and the one-hot MXU
-    gather of each chain's minibatch.  Requires the dense BNN
-    parameterization (:func:`pysgmcmc_tpu.models.architectures.
-    dense_network` pytrees) and an SGHMC, SGLD, pSGLD, SGNHT or
-    RelativisticSGHMC sampler whose cost
-    is the reference heteroscedastic sinc-style likelihood; arbitrary
-    cost functions should use :func:`sample_chain_lanes` or the pytree
-    path.
-
-    ``x``/``y`` are the raw training data (the driver precomputes the
-    contiguous windows of :func:`pysgmcmc_tpu.data_batches.batch_fn`).
-
-    ``mesh`` shards the chain axis over a device mesh (chains are pure
-    SPMD — every device runs the fused kernel on its local block of
-    chains; the training data ``x``/``y`` is replicated).
-
-    Returns ``(states, positions, costs)`` shaped like
-    :func:`pysgmcmc_tpu.samplers.base.sample_chain`.
-    """
-    if mesh is not None:
-        from pysgmcmc_tpu.parallel.mesh import CHAIN_AXIS
-
-        def body(local_states, local_key):
-            return sample_chain_fused(
-                sampler, local_states, local_key, n_samples, x, y,
-                batch_size=batch_size, keep_every=keep_every,
-                block_chains=block_chains, state_dtype=state_dtype,
-                collect_positions=collect_positions, multistep=multistep,
-                pair_dots=pair_dots, noise_impl=noise_impl, interpret=interpret,
-            )
-
-        return _run_sharded(
-            body, states, key, mesh, axis_name or CHAIN_AXIS)
-
-    from pysgmcmc_tpu.ops.fused_step import (
-        data_windows,
-        fused_bnn_step,
-        fused_bnn_step_psgld,
-        fused_bnn_step_rsghmc,
-        fused_bnn_step_sgld,
-        fused_bnn_step_sgnht,
-        gather_batch,
-        pack_fused,
-        unpack_fused,
-    )
-
-    if pair_dots and not multistep:
-        raise ValueError(
-            "pair_dots is a multi-step kernel variant; pass "
-            "multistep=True")
-
-    # 'auto' = the measured-fastest generator for the path (+66% at
-    # H=50, +156% at H=100 over Box-Muller — docs/performance.md
-    # "MXU-CLT noise")
-    noise_impl = resolve_noise_impl(noise_impl, pair_dots, interpret)
-
-    if isinstance(sampler, SGHMCSampler):
-        fkind = "sghmc"
-    elif isinstance(sampler, SGLDSampler):
-        fkind = "sgld"
-    elif isinstance(sampler, PSGLDSampler):
-        fkind = "psgld"
-    elif isinstance(sampler, SGNHTSampler):
-        fkind = "sgnht"
-    elif isinstance(sampler, RelativisticSGHMCSampler):
-        fkind = "rsghmc"
-    else:
-        raise NotImplementedError(
-            "sample_chain_fused supports the SGHMC, SGLD, PSGLD, SGNHT "
-            "and RelativisticSGHMC samplers; got {!r}".format(
-                type(sampler).__name__)
-        )
-    h = states.position["w2"].shape[-1]
-    n_chains = states.position["w2"].shape[0]
-    w1 = states.position["w1"]
-    n_inputs = 1 if w1.ndim == 2 else w1.shape[1]
-    if n_chains < MIN_FUSED_CHAINS and not interpret:
-        # Mosaic rejects 1-row chain blocks on real TPUs ("Not
-        # implemented: Offset change" on the per-chain cost reduction);
-        # pad the chain axis to the sublane minimum and slice back.
-        # Real chains are bit-identical: in-kernel PRNG streams are
-        # chain-index keyed, and the host-side window draw is
-        # prefix-stable under a longer draw shape (threefry counters).
-        # Interpret mode has no Mosaic and runs unpadded (the bitwise
-        # test of the pad's safety claim compares exactly these two).
-        new_states, positions, costs = sample_chain_fused(
-            sampler, _pad_chain_axis(states, n_chains, MIN_FUSED_CHAINS),
-            key, n_samples, x, y, batch_size=batch_size,
-            keep_every=keep_every, block_chains=block_chains,
-            state_dtype=state_dtype, collect_positions=collect_positions,
-            multistep=multistep, pair_dots=pair_dots,
-            noise_impl=noise_impl, interpret=interpret)
-        new_states = _slice_chain_axis(
-            new_states, MIN_FUSED_CHAINS, n_chains)
-        if positions is not None:
-            positions = jax.tree_util.tree_map(
-                lambda l: l[:n_chains], positions)
-        return new_states, positions, costs[:n_chains]
-    n_data = jnp.asarray(x).shape[0]
-    x_win, y_win = data_windows(x, y, batch_size)
-    n_windows = x_win.shape[0]
-    # clamp the grid block to a divisor of the (local) chain count, like
-    # burnin_chain_fused: under a mesh this body sees only the shard's
-    # chains, which can be smaller than the caller's block_chains —
-    # raised to the Mosaic sub-sublane floor where needed
-    block_chains = _effective_block(block_chains, n_chains, interpret)
-
-    theta = pack_fused(states.position)
-    if fkind == "sghmc":
-        v = tuple(
-            a.astype(state_dtype) for a in pack_fused(states.momentum))
-        minv = tuple(
-            a.astype(state_dtype) for a in pack_fused(states.stats.minv))
-    elif fkind == "sgld":
-        v = None
-        minv = tuple(
-            a.astype(state_dtype) for a in pack_fused(states.stats.minv))
-    elif fkind in ("sgnht", "rsghmc"):
-        v = tuple(
-            a.astype(state_dtype) for a in pack_fused(states.momentum))
-        minv = None
-    else:  # psgld: the accumulator adapts every step and stays f32
-        v = pack_fused(states.v)
-        minv = None
-    if fkind == "sgnht":
-        # per-chain thermostat replicated into a (n_chains, 128) lane row
-        xi = jnp.asarray(states.xi, jnp.float32)[:, None] + jnp.zeros(
-            (n_chains, 128), jnp.float32)
-    else:
-        xi = None
-
-    key, key_seed = jax.random.split(key)
-    base_seed = _base_seed(key_seed)
-    schedule_state0 = _shared_schedule_state(states, "sample_chain_fused")
-    step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
-
-    def one_step(carry, _):
-        theta, v, xi, key, step = carry
-        key, key_batch = jax.random.split(key)
-        widx = jax.random.randint(key_batch, (n_chains,), 0, n_windows)
-        x_sel, y_sel = gather_batch(x_win, y_win, widx)
-        eps = _schedule_eps(sampler, schedule_state0, step)
-        seed = base_seed + step.astype(jnp.int32)
-        if fkind == "sghmc":
-            theta, v, cost = fused_bnn_step(
-                theta, v, minv, x_sel, y_sel, eps, seed,
-                mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                n_inputs=n_inputs, noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "sgld":
-            theta, cost = fused_bnn_step_sgld(
-                theta, minv, x_sel, y_sel, eps, seed,
-                a_coef=float(sampler.A), scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains,
-                n_inputs=n_inputs, noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "sgnht":
-            theta, v, xi, cost = fused_bnn_step_sgnht(
-                theta, v, xi, x_sel, y_sel, eps, seed,
-                a_diff=sampler.a_diff, scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                n_inputs=n_inputs, h=h, noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "rsghmc":
-            theta, v, cost = fused_bnn_step_rsghmc(
-                theta, v, x_sel, y_sel, eps, seed,
-                mass=sampler.mass, speed_of_light=sampler.speed_of_light,
-                d_coef=sampler.D, b_hat=sampler.Bhat,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                n_inputs=n_inputs, h=h, noise_impl=noise_impl, interpret=interpret,
-            )
-        else:
-            theta, v, cost = fused_bnn_step_psgld(
-                theta, v, x_sel, y_sel, eps, seed,
-                alpha=sampler.alpha, lambda_reg=sampler.lambda_reg,
-                scale_grad=sampler.scale_grad,
-                prior_scale=getattr(sampler, "gaussian_prior_scale", 0.0),
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=jnp.float32,
-                n_inputs=n_inputs, h=h, noise_impl=noise_impl, interpret=interpret,
-            )
-        return (theta, v, xi, key, step + 1), cost[:, 0]
-
-    def thinned(carry, _):
-        carry, costs = jax.lax.scan(one_step, carry, None, length=keep_every)
-        out = unpack_fused(carry[0], h, n_inputs) if collect_positions else None
-        return carry, (out, costs[-1])
-
-    def _multistep_launch(carry, seg):
-        # seg steps advance INSIDE one kernel launch, VMEM-resident
-        # (ops/fused_step.fused_bnn_multistep); the kernel draws each
-        # chain's minibatch window from its own in-kernel PRNG stream and
-        # reports the final step's cost — identical to the thinned scan's
-        # costs[-1].  The schedule is evaluated host-side PER INNER STEP
-        # and shipped as a (seg,) eps vector (the kernels read a
-        # per-step SMEM scalar row), so step-varying schedules are exact
-        # — same stepsizes the per-step path would use.
-        from pysgmcmc_tpu.ops.fused_step import (
-            fused_bnn_multistep,
-            fused_bnn_multistep_psgld,
-            fused_bnn_multistep_rsghmc,
-            fused_bnn_multistep_sgld,
-            fused_bnn_multistep_sgnht,
-        )
-
-        theta, v, xi, key, step = carry
-        eps = jax.vmap(
-            lambda t: _schedule_eps(sampler, schedule_state0, step + t)
-        )(jnp.arange(seg))
-        keep_every = seg
-        if fkind == "sghmc":
-            theta, v, cost = fused_bnn_multistep(
-                theta, v, minv, x_win, y_win, eps,
-                base_seed + step.astype(jnp.int32),
-                mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                k_steps=keep_every, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "sgnht":
-            theta, v, xi, cost = fused_bnn_multistep_sgnht(
-                theta, v, xi, x_win, y_win, eps,
-                base_seed + step.astype(jnp.int32),
-                a_diff=sampler.a_diff, scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                k_steps=keep_every, h=h, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "psgld":
-            theta, v, cost = fused_bnn_multistep_psgld(
-                theta, v, x_win, y_win, eps,
-                base_seed + step.astype(jnp.int32),
-                alpha=sampler.alpha, lambda_reg=sampler.lambda_reg,
-                scale_grad=sampler.scale_grad,
-                prior_scale=getattr(sampler, "gaussian_prior_scale", 0.0),
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains,
-                k_steps=keep_every, h=h, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-        elif fkind == "rsghmc":
-            theta, v, cost = fused_bnn_multistep_rsghmc(
-                theta, v, x_win, y_win, eps,
-                base_seed + step.astype(jnp.int32),
-                mass=sampler.mass, speed_of_light=sampler.speed_of_light,
-                d_coef=sampler.D, b_hat=sampler.Bhat,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains, state_dtype=state_dtype,
-                k_steps=keep_every, h=h, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-        else:
-            theta, cost = fused_bnn_multistep_sgld(
-                theta, minv, x_win, y_win, eps,
-                base_seed + step.astype(jnp.int32),
-                a_coef=float(sampler.A), scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                batch_size=batch_size, n_data=n_data,
-                block_chains=block_chains,
-                k_steps=keep_every, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-        carry = (theta, v, xi, key, step + keep_every)
-        return carry, cost[:, 0]
-
-    # Split each thinning segment into launches of at most
-    # MAX_STEPS_PER_LAUNCH steps: the per-step SMEM schedule table costs
-    # one 128-lane f32 row per step, and a single launch covering a
-    # large keep_every (or a whole burn-in) exceeds the chip's 1 MiB
-    # SMEM at AOT compile time.
-    launch_segs = [MAX_STEPS_PER_LAUNCH] * (
-        keep_every // MAX_STEPS_PER_LAUNCH)
-    if keep_every % MAX_STEPS_PER_LAUNCH:
-        launch_segs.append(keep_every % MAX_STEPS_PER_LAUNCH)
-
-    def thinned_multistep(carry, _):
-        for seg in launch_segs:  # static: unrolled at trace time
-            carry, cost = _multistep_launch(carry, seg)
-        out = (unpack_fused(carry[0], h, n_inputs)
-               if collect_positions else None)
-        return carry, (out, cost)
-
-    (theta, v, xi, _, step), (positions, costs) = jax.lax.scan(
-        thinned_multistep if multistep else thinned,
-        (theta, v, xi, key, step0), None, length=n_samples
-    )
-
-    if fkind == "sghmc":
-        new_states = SGHMCState(
-            position=unpack_fused(theta, h, n_inputs),
-            momentum=jax.tree_util.tree_map(
-                lambda l: l.astype(jnp.float32),
-                unpack_fused(v, h, n_inputs),
-            ),
-            stats=states.stats,
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    elif fkind == "sgld":
-        new_states = SGLDState(
-            position=unpack_fused(theta, h, n_inputs),
-            stats=states.stats,
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    elif fkind == "sgnht":
-        new_states = SGNHTState(
-            position=unpack_fused(theta, h, n_inputs),
-            momentum=jax.tree_util.tree_map(
-                lambda l: l.astype(jnp.float32),
-                unpack_fused(v, h, n_inputs),
-            ),
-            xi=xi[:, 0],
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    elif fkind == "rsghmc":
-        new_states = RelativisticSGHMCState(
-            position=unpack_fused(theta, h, n_inputs),
-            momentum=jax.tree_util.tree_map(
-                lambda l: l.astype(jnp.float32),
-                unpack_fused(v, h, n_inputs),
-            ),
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    else:
-        new_states = PSGLDState(
-            position=unpack_fused(theta, h, n_inputs),
-            v=jax.tree_util.tree_map(
-                lambda l: l.astype(jnp.float32),
-                unpack_fused(v, h, n_inputs),
-            ),
-            step=states.step + n_samples * keep_every,
-            schedule_state=states.schedule_state,
-        )
-    if positions is not None:
-        positions = jax.tree_util.tree_map(
-            lambda l: jnp.swapaxes(l, 0, 1), positions
-        )
-    costs = jnp.swapaxes(costs, 0, 1)
-    return new_states, positions, costs
+        new_states = SGLDState(stats=states.stats, **common)
+    return (new_states,) + _swap_chain_axis(positions, costs)
 
 
 def sample_chain_stacked(
@@ -1132,72 +633,41 @@ def sample_chain_stacked(
     n_samples,
     batch_fn=None,
     keep_every=1,
-    backend="pallas",
     bf16_params=False,
     collect_positions=True,
-    interpret=False,
 ):
-    """Sampling-phase driver over stacked (native-layout) multi-chain state.
+    """Sampling-phase SGHMC driver over stacked (native-layout) state.
 
-    The zero-relayout throughput path: the scan runs *outside* a per-step
-    ``vmap`` (scan-of-vmap instead of vmap-of-scan — the same program XLA
-    sees either way) so the fused leafwise update kernel
-    (:func:`pysgmcmc_tpu.ops.slim_update.slim_sghmc_update_tree`) can
-    operate on whole stacked leaves: noise generation moves into the kernel
-    (no threefry materialization — measured 1.9 ms of the 5.5 ms flagship
-    step) and every leaf keeps the exact layout the vmapped gradient
-    produces.
+    The scan runs *outside* a per-step ``vmap`` (scan-of-vmap instead of
+    vmap-of-scan), so the update operates on whole stacked leaves with one
+    threefry draw per leaf.
 
     With ``bf16_params=True`` the cost function is evaluated on a bfloat16
-    copy of the position that the *kernel itself emits* each step, so the
-    separate f32->bf16 cast pass disappears and the gradient stays bfloat16
-    end to end (its HBM read halves).  The cost function must accept
-    bfloat16 leaves (the mixed-precision cost functions here do: they cast
-    inputs to their compute dtype, a no-op for an already-bf16 tree).
-
-    ``backend="xla"`` runs the same schedule with jnp math and stacked
-    threefry noise — the bitwise-testable reference for this driver.
+    copy of the position, so the gradient stays bfloat16 end to end.  The
+    cost function must accept bfloat16 leaves (the mixed-precision cost
+    functions here do: they cast inputs to their compute dtype, a no-op
+    for an already-bf16 tree).
 
     Returns ``(states, positions, costs)`` like
     :func:`pysgmcmc_tpu.samplers.base.sample_chain`, with stacked leading
     ``(n_chains, n_samples, ...)`` axes.
     """
-    if not isinstance(sampler, SGHMCSampler):
-        raise NotImplementedError(
-            "sample_chain_stacked currently supports SGHMCSampler; got "
-            "{!r}".format(type(sampler).__name__)
-        )
-    if backend not in ("pallas", "xla"):
-        raise ValueError("backend must be 'pallas' or 'xla'")
+    _sampler_kind(sampler, "sample_chain_stacked", ("sghmc",))
+    from pysgmcmc_tpu.utils.pytree import normal_like_tree
 
     n_chains = jax.tree_util.tree_leaves(states.position)[0].shape[0]
     minv = states.stats.minv
-    key, key_seed = jax.random.split(key)
-    base_seed = _base_seed(key_seed)
-    mdecay = sampler.mdecay
-    scale_grad = sampler.scale_grad
-    prior_scale = sampler.gaussian_prior_scale
     schedule_state0 = _shared_schedule_state(states, "sample_chain_stacked")
     step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
-
-    grad_fn = jax.vmap(
-        lambda pos, batch: jax.value_and_grad(sampler.cost_fn)(pos, batch)
-        if batch is not None
-        else jax.value_and_grad(sampler.cost_fn)(pos),
-        in_axes=(0, 0 if batch_fn is not None else None),
-    )
-
-    theta = states.position
-    v = states.momentum
-    theta_c = (
-        jax.tree_util.tree_map(lambda l: l.astype(jnp.bfloat16), theta)
-        if bf16_params else None
-    )
+    grad_fn = _vmapped_grad(sampler, batch_fn)
 
     def one_step(carry, _):
-        theta, theta_c, v, key, step = carry
+        theta, v, key, step = carry
         key, key_step = jax.random.split(key)
-        pos_in = theta_c if bf16_params else theta
+        pos_in = theta
+        if bf16_params:
+            pos_in = jax.tree_util.tree_map(
+                lambda l: l.astype(jnp.bfloat16), theta)
         if batch_fn is not None:
             batches = jax.vmap(batch_fn)(
                 jax.random.split(key_step, n_chains)
@@ -1206,49 +676,27 @@ def sample_chain_stacked(
         else:
             cost, grads = grad_fn(pos_in, None)
         eps = _schedule_eps(sampler, schedule_state0, step)
-        if backend == "pallas":
-            outs = slim_sghmc_update_tree(
-                theta, v, grads, minv, eps,
-                base_seed + step.astype(jnp.int32),
-                mdecay=mdecay, scale_grad=scale_grad,
-                prior_scale=prior_scale, emit_bf16=bf16_params,
-                interpret=interpret,
-            )
-            theta, v = outs[0], outs[1]
-            if bf16_params:
-                theta_c = outs[2]
-        else:
-            from pysgmcmc_tpu.utils.pytree import normal_like_tree
-
-            key, key_noise = jax.random.split(key)
-            eta = normal_like_tree(key_noise, theta)
-            eps_scaled = eps / jnp.sqrt(jnp.asarray(scale_grad, jnp.float32))
-
-            def momentum_leaf(t, vv, g, mi, e):
-                g32 = g.astype(jnp.float32) + prior_scale * t
-                sigma = jnp.sqrt(jnp.maximum(
-                    2.0 * eps_scaled**2 * mdecay * mi - eps_scaled**4,
-                    1e-16,
-                ))
-                return vv - eps**2 * mi * g32 - mdecay * vv + sigma * e
-
-            v = jax.tree_util.tree_map(
-                momentum_leaf, theta, v, grads, minv, eta
-            )
-            theta = jax.tree_util.tree_map(lambda t, vv: t + vv, theta, v)
-            if bf16_params:
-                theta_c = jax.tree_util.tree_map(
-                    lambda l: l.astype(jnp.bfloat16), theta
-                )
-        return (theta, theta_c, v, key, step + 1), cost
+        key, key_noise = jax.random.split(key)
+        eta = normal_like_tree(key_noise, theta)
+        new = jax.tree_util.tree_map(
+            lambda t, vv, g, mi, e: sghmc_update(
+                t, vv, g, mi, eps, e, sampler.mdecay, sampler.scale_grad,
+                sampler.gaussian_prior_scale),
+            theta, v, grads, minv, eta,
+        )
+        theta = jax.tree_util.tree_map(
+            lambda _, pair: pair[0], theta, new)
+        v = jax.tree_util.tree_map(lambda _, pair: pair[1], v, new)
+        return (theta, v, key, step + 1), cost
 
     def thinned(carry, _):
         carry, costs = jax.lax.scan(one_step, carry, None, length=keep_every)
         out = carry[0] if collect_positions else None
         return carry, (out, costs[-1])
 
-    (theta, _, v, _, step), (positions, costs) = jax.lax.scan(
-        thinned, (theta, theta_c, v, key, step0), None, length=n_samples
+    (theta, v, _, _), (positions, costs) = jax.lax.scan(
+        thinned, (states.position, states.momentum, key, step0), None,
+        length=n_samples,
     )
 
     new_states = SGHMCState(
@@ -1258,12 +706,7 @@ def sample_chain_stacked(
         step=states.step + n_samples * keep_every,
         schedule_state=states.schedule_state,
     )
-    if positions is not None:
-        positions = jax.tree_util.tree_map(
-            lambda l: jnp.swapaxes(l, 0, 1), positions
-        )
-    costs = jnp.swapaxes(costs, 0, 1)
-    return new_states, positions, costs
+    return (new_states,) + _swap_chain_axis(positions, costs)
 
 
 def sample_chain_packed(
@@ -1274,11 +717,9 @@ def sample_chain_packed(
     batch_fn=None,
     keep_every=1,
     compute_dtype=jnp.bfloat16,
-    backend="pallas",
     collect_positions=True,
-    interpret=False,
 ):
-    """Sampling-phase chain driver over packed flat state.
+    """Sampling-phase SGHMC driver over slot-packed flat state.
 
     The packed analog of
     :func:`pysgmcmc_tpu.samplers.base.sample_chain(..., phase="sampling")`
@@ -1287,29 +728,20 @@ def sample_chain_packed(
     burn-in with the pytree path first).
 
     Per step: unpack ``theta`` into ``compute_dtype`` leaves, evaluate the
-    vmapped minibatch gradient, and advance ``(theta, v)`` with the fused
-    flat update — Pallas with in-kernel RNG (``backend="pallas"``), or the
-    same math in jnp with a threefry draw (``backend="xla"``; bitwise equal
-    to the pytree path given equal noise, used for A/B and fallback).
+    vmapped minibatch gradient, and advance ``(theta, v)`` with one
+    elementwise pass over the ``(n_chains, width)`` matrices.
 
     Returns ``(states, positions, costs)`` where ``positions`` is the
     unpacked stacked pytree with a ``(n_chains, n_samples, ...)`` leading
     layout and ``costs`` is ``(n_chains, n_samples)``.
 
     The PRNG stream differs from (but is as valid as) the pytree path's:
-    noise comes from the in-kernel PRNG (or one flat threefry draw), and
-    minibatch keys derive from one split per step rather than per chain.
+    noise comes from one flat threefry draw, and minibatch keys derive
+    from one split per step rather than per chain.
     """
-    if not isinstance(sampler, SGHMCSampler):
-        raise NotImplementedError(
-            "sample_chain_packed currently supports SGHMCSampler; got "
-            "{!r}".format(type(sampler).__name__)
-        )
-    if backend not in ("pallas", "xla"):
-        raise ValueError("backend must be 'pallas' or 'xla'")
+    _sampler_kind(sampler, "sample_chain_packed", ("sghmc",))
 
-    leaves = jax.tree_util.tree_leaves(states.position)
-    n_chains = leaves[0].shape[0]
+    n_chains = jax.tree_util.tree_leaves(states.position)[0].shape[0]
     template = jax.tree_util.tree_map(lambda l: l[0], states.position)
     spec = make_pack_spec(template)
     mask = pack_mask(spec)
@@ -1317,32 +749,8 @@ def sample_chain_packed(
     theta = pack_tree(spec, states.position)
     v = pack_tree(spec, states.momentum)
     minv = pack_tree(spec, states.stats.minv)
-
-    grad_fn = jax.vmap(
-        lambda pos, batch: jax.value_and_grad(sampler.cost_fn)(pos, batch)
-        if batch is not None
-        else jax.value_and_grad(sampler.cost_fn)(pos),
-        in_axes=(0, 0 if batch_fn is not None else None),
-    )
-
-    # one int32 per run seeds the kernel PRNG; the kernel mixes the
-    # per-step seed (base_seed + step) with the block id as separate seed
-    # words, so streams never collide across (step, block) pairs
-    key, key_seed = jax.random.split(key)
-    base_seed = jax.random.randint(
-        key_seed, (), jnp.iinfo(jnp.int32).min // 2,
-        jnp.iinfo(jnp.int32).max // 2, jnp.int32,
-    )
-
-    mdecay = sampler.mdecay
-    scale_grad = sampler.scale_grad
-    prior_scale = sampler.gaussian_prior_scale
-    schedule_state0 = states.schedule_state
-    if jax.tree_util.tree_leaves(schedule_state0):
-        # stacked per-chain schedule state: lockstep chains share it
-        schedule_state0 = jax.tree_util.tree_map(
-            lambda l: l[0], schedule_state0
-        )
+    grad_fn = _vmapped_grad(sampler, batch_fn)
+    schedule_state0 = _shared_schedule_state(states, "sample_chain_packed")
     step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
 
     def one_step(carry, _):
@@ -1356,40 +764,25 @@ def sample_chain_packed(
             cost, grads = grad_fn(theta_tree, batches)
         else:
             cost, grads = grad_fn(theta_tree, None)
-        # keep the gradient in its native dtype (bfloat16 when the cost
-        # runs in bf16): the kernel reads it at half the HBM bytes
         grad_flat = pack_tree(
             spec, grads, dtype=jax.tree_util.tree_leaves(grads)[0].dtype
         )
         eps = _schedule_eps(sampler, schedule_state0, step)
-        if backend == "pallas":
-            theta, v = slim_sghmc_update(
-                theta, v, grad_flat, minv, mask, eps,
-                base_seed + step.astype(jnp.int32),
-                mdecay=mdecay, scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        else:
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            eps_scaled = eps / jnp.sqrt(
-                jnp.asarray(scale_grad, jnp.float32)
-            )
-            g = grad_flat.astype(jnp.float32) + prior_scale * theta
-            sigma = jnp.sqrt(jnp.maximum(
-                2.0 * eps_scaled**2 * mdecay * minv - eps_scaled**4, 1e-16
-            ))
-            v = (v - eps**2 * minv * g - mdecay * v + sigma * eta) * mask
-            theta = theta + v
+        key, key_noise = jax.random.split(key)
+        eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
+        # masked noise keeps the slot padding (theta = v = minv = 0) at
+        # exactly zero
+        theta, v = sghmc_update(
+            theta, v, grad_flat, minv, eps, eta * mask, sampler.mdecay,
+            sampler.scale_grad, sampler.gaussian_prior_scale)
         return (theta, v, key, step + 1), cost
 
     def thinned(carry, _):
         carry, costs = jax.lax.scan(one_step, carry, None, length=keep_every)
-        theta = carry[0]
-        out = unpack_tree(spec, theta) if collect_positions else None
+        out = unpack_tree(spec, carry[0]) if collect_positions else None
         return carry, (out, costs[-1])
 
-    (theta, v, _, step), (positions, costs) = jax.lax.scan(
+    (theta, v, _, _), (positions, costs) = jax.lax.scan(
         thinned, (theta, v, key, step0), None, length=n_samples
     )
 
@@ -1400,13 +793,7 @@ def sample_chain_packed(
         step=states.step + n_samples * keep_every,
         schedule_state=states.schedule_state,
     )
-    if positions is not None:
-        # (n_samples, n_chains, ...) -> (n_chains, n_samples, ...)
-        positions = jax.tree_util.tree_map(
-            lambda l: jnp.swapaxes(l, 0, 1), positions
-        )
-    costs = jnp.swapaxes(costs, 0, 1)
-    return new_states, positions, costs
+    return (new_states,) + _swap_chain_axis(positions, costs)
 
 
 def burnin_chain_lanes(
@@ -1416,34 +803,28 @@ def burnin_chain_lanes(
     n_steps,
     batch_fn=None,
     compute_dtype=jnp.bfloat16,
-    backend="pallas",
     state_dtype=jnp.float32,
     mesh=None,
     axis_name=None,
-    interpret=False,
 ):
-    """Burn-in driver with chains-on-lanes packed state and fused EMA kernels.
+    """Burn-in driver with chains-on-lanes packed state.
 
     The burn-in analog of :func:`sample_chain_lanes` for the adaptive
     samplers (SGHMC, SGLD): each step runs the whole Springenberg et al.
     self-tuning update — tau/g/v_hat EMAs, mass-matrix inverse, noise and
-    parameter update (semantics of
+    parameter update (:func:`adaptive_burnin_update`; semantics of
     :func:`pysgmcmc_tpu.samplers._adaptive.update_stats` with
-    ``phase="burn_in"``; reference
-    ``/root/reference/pysgmcmc/samplers/sghmc.py:126-196``) — as ONE
-    Pallas kernel over the packed ``(rows, n_chains)`` state
-    (:func:`pysgmcmc_tpu.ops.slim_update.slim_sghmc_burnin_update` /
-    ``slim_sgld_burnin_update``), so full training runs never touch the
-    pytree path.
+    ``phase="burn_in"``, reference
+    ``/root/reference/pysgmcmc/samplers/sghmc.py:126-196``) — over the
+    packed ``(rows, n_chains)`` state.
 
     Per-chain stepsizes (stacked
     :class:`~pysgmcmc_tpu.stepsize_schedules.TracedStepsizeSchedule`
     state) are supported exactly as in :func:`sample_chain_lanes`.
 
-    ``backend="xla"`` runs the same schedule with jnp math + threefry
-    noise (bitwise-testable on CPU).  Returns the advanced states (with
-    ``stats.minv`` holding the mass-matrix inverse the final step used —
-    the value the sampling phase freezes).
+    Returns the advanced states (with ``stats.minv`` holding the
+    mass-matrix inverse the final step used — the value the sampling phase
+    freezes).
     """
     if mesh is not None:
         from pysgmcmc_tpu.parallel.mesh import CHAIN_AXIS
@@ -1452,37 +833,19 @@ def burnin_chain_lanes(
             return burnin_chain_lanes(
                 sampler, local_states, local_key, n_steps,
                 batch_fn=batch_fn, compute_dtype=compute_dtype,
-                backend=backend, state_dtype=state_dtype,
-                interpret=interpret,
+                state_dtype=state_dtype,
             )
 
         return _run_sharded(
             body, states, key, mesh, axis_name or CHAIN_AXIS)
 
-    from pysgmcmc_tpu.ops.slim_update import (
-        slim_sghmc_burnin_update,
-        slim_sgld_burnin_update,
-    )
     from pysgmcmc_tpu.samplers._adaptive import AdaptiveStats
 
-    if isinstance(sampler, SGHMCSampler):
-        kind = "sghmc"
-    elif isinstance(sampler, SGLDSampler):
-        kind = "sgld"
-    else:
-        raise NotImplementedError(
-            "burnin_chain_lanes supports the adaptive (burn-in) samplers "
-            "SGHMC and SGLD; got {!r}".format(type(sampler).__name__)
-        )
-    if backend not in ("pallas", "xla"):
-        raise ValueError("backend must be 'pallas' or 'xla'")
+    kind = _sampler_kind(
+        sampler, "burnin_chain_lanes (adaptive samplers)", ("sghmc", "sgld"))
     is_sghmc = kind == "sghmc"
 
     n_chains = jax.tree_util.tree_leaves(states.position)[0].shape[0]
-    if backend == "pallas" and n_chains % LANES != 0:
-        # the slim kernels need 128-aligned chain lanes; small or odd
-        # chain counts run the (identical-math) jnp path instead
-        backend = "xla"
     template = jax.tree_util.tree_map(lambda l: l[0], states.position)
     spec = make_lanes_spec(template)
 
@@ -1496,19 +859,9 @@ def burnin_chain_lanes(
     v_hat = pack_lanes(spec, states.stats.v_hat)
     minv = pack_lanes(spec, states.stats.minv)
 
-    grad_fn = jax.vmap(
-        lambda pos, batch: jax.value_and_grad(sampler.cost_fn)(pos, batch)
-        if batch is not None
-        else jax.value_and_grad(sampler.cost_fn)(pos),
-        in_axes=(0, 0 if batch_fn is not None else None),
-    )
-
-    key, key_seed = jax.random.split(key)
-    base_seed = _base_seed(key_seed)
+    grad_fn = _vmapped_grad(sampler, batch_fn)
     scale_grad = getattr(sampler, "scale_grad", 1.0)
     prior_scale = getattr(sampler, "gaussian_prior_scale", 0.0)
-    mdecay = sampler.mdecay if is_sghmc else None
-    a_coef = sampler.A if kind == "sgld" else None
     eps_of = _lanes_eps_fn(sampler, states, n_chains)
     step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
 
@@ -1526,246 +879,34 @@ def burnin_chain_lanes(
         grad_flat = pack_lanes(
             spec, grads, dtype=jax.tree_util.tree_leaves(grads)[0].dtype
         )
-        eps = eps_of(step)
-        seed = base_seed + step.astype(jnp.int32)
-        if backend == "pallas" and is_sghmc:
-            theta, v, tau, g, v_hat, minv = slim_sghmc_burnin_update(
-                theta, v, tau, g, v_hat, grad_flat, None, eps, seed,
-                mdecay=mdecay, scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        elif backend == "pallas":
-            theta, tau, g, v_hat, minv = slim_sgld_burnin_update(
-                theta, tau, g, v_hat, grad_flat, None, eps, seed,
-                a_coef=float(a_coef), scale_grad=scale_grad,
-                prior_scale=prior_scale, interpret=interpret,
-            )
-        else:
-            # jnp mirror of the kernel math (bitwise-testable on CPU)
-            key, key_noise = jax.random.split(key)
-            eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
-            small = 1e-16
-            gg = grad_flat.astype(jnp.float32) + prior_scale * theta
-            sqrt_vhat = jnp.sqrt(jnp.maximum(v_hat, 0.0))
-            minv = 1.0 / (
-                sqrt_vhat + 2.0 * jnp.sign(sqrt_vhat) * small + small
-            )
-            denom = v_hat + 2.0 * jnp.sign(v_hat) * small + small
-            tau_new = tau + (-g * g * tau) / denom + 1.0
-            r = 1.0 / (tau + 1.0)
-            g = g - r * g + r * gg
-            v_hat = v_hat - r * v_hat + r * gg * gg
-            tau = tau_new
-            if is_sghmc:
-                eps_scaled = eps / jnp.sqrt(
-                    jnp.asarray(scale_grad, jnp.float32))
-                sigma = jnp.sqrt(jnp.maximum(
-                    2.0 * eps_scaled**2 * mdecay * minv - eps_scaled**4,
-                    1e-16))
-                v32 = v.astype(jnp.float32)
-                v32 = v32 - eps**2 * minv * gg - mdecay * v32 + sigma * eta
-                theta = theta + v32
-                v = v32.astype(state_dtype)
-            else:
-                sg = jnp.asarray(scale_grad, jnp.float32)
-                c = jnp.asarray(1e-16, jnp.float32)
-                sg_safe = sg + 2.0 * jnp.sign(sg) * c + c
-                sigma = jnp.sqrt(jnp.maximum(
-                    2.0 * eps * ((minv * a_coef) / sg_safe), 0.0))
-                theta = theta - eps * minv * a_coef * gg + sigma * eta
+        key, key_noise = jax.random.split(key)
+        eta = jax.random.normal(key_noise, theta.shape, jnp.float32)
+        theta, v, tau, g, v_hat, minv = adaptive_burnin_update(
+            theta, v, tau, g, v_hat, grad_flat, eps_of(step), eta,
+            scale_grad, prior_scale,
+            mdecay=sampler.mdecay if is_sghmc else None,
+            a_coef=None if is_sghmc else sampler.A,
+        )
+        if v is not None:
+            v = v.astype(state_dtype)
         return (theta, v, tau, g, v_hat, minv, key, step + 1), ()
 
-    (theta, v, tau, g, v_hat, minv, _, step), _ = jax.lax.scan(
+    (theta, v, tau, g, v_hat, minv, _, _), _ = jax.lax.scan(
         one_step, (theta, v, tau, g, v_hat, minv, key, step0), None,
         length=n_steps,
     )
 
-    stats = AdaptiveStats(
-        tau=unpack_lanes(spec, tau),
-        g=unpack_lanes(spec, g),
-        v_hat=unpack_lanes(spec, v_hat),
-        minv=unpack_lanes(spec, minv),
-    )
-    if is_sghmc:
-        return SGHMCState(
-            position=unpack_lanes(spec, theta),
-            momentum=unpack_lanes(spec, v, jnp.float32),
-            stats=stats,
-            step=states.step + n_steps,
-            schedule_state=states.schedule_state,
-        )
-    return SGLDState(
+    common = dict(
         position=unpack_lanes(spec, theta),
-        stats=stats,
+        stats=AdaptiveStats(
+            tau=unpack_lanes(spec, tau),
+            g=unpack_lanes(spec, g),
+            v_hat=unpack_lanes(spec, v_hat),
+            minv=unpack_lanes(spec, minv),
+        ),
         step=states.step + n_steps,
         schedule_state=states.schedule_state,
     )
-
-
-def burnin_chain_fused(
-    sampler,
-    states,
-    key,
-    n_steps,
-    x,
-    y,
-    batch_size=20,
-    block_chains=32,
-    state_dtype=jnp.bfloat16,
-    mesh=None,
-    axis_name=None,
-    pair_dots=False,
-    noise_impl="auto",
-    interpret=False,
-):
-    """Burn-in driver on the multi-step VMEM-resident fused kernel.
-
-    The whole adaptive phase — forward, likelihood, backward, the
-    Springenberg et al. tau/g/v_hat EMAs, mass-matrix inverse, noise and
-    update — runs as ONE kernel launch advancing ``n_steps`` steps with
-    every piece of state resident in VMEM
-    (:func:`pysgmcmc_tpu.ops.fused_step.fused_bnn_multistep_burnin` /
-    ``fused_bnn_multistep_burnin_sgld``); the minibatch window is drawn
-    from the in-kernel PRNG each step.  SGHMC and SGLD (the adaptive
-    samplers).  The schedule is evaluated host-side per step and shipped
-    as an ``(n_steps,)`` eps vector (the kernel reads a per-step SMEM
-    scalar row), so step-varying schedules are exact.
-    ``mesh`` shards the chain axis via
-    :func:`_run_sharded`.  Returns the advanced states with
-    ``stats.minv`` holding the mass-matrix inverse the final step used
-    (the value the sampling phase freezes), matching
-    :func:`burnin_chain_lanes`.
-    """
-    if int(n_steps) < 1:
-        return states
-    noise_impl = resolve_noise_impl(noise_impl, pair_dots, interpret)
-    if int(n_steps) > MAX_STEPS_PER_LAUNCH:
-        # The per-step eps table lives in SMEM as a (n_steps, 128-lane)
-        # f32 row per step (ops/fused_step._per_step_table): one launch
-        # covering a full 3000-step burn-in needs 1.5 MB of the chip's
-        # 1 MiB SMEM and fails AOT compilation.  Chunk into bounded
-        # launches; seeds/schedules stay exact because every launch is
-        # keyed on (base_seed + states.step) and evaluates the schedule
-        # from the advanced step counter, the same contract consecutive
-        # sampling-phase launches already rely on.
-        n_left = int(n_steps)
-        while n_left > 0:
-            seg = min(n_left, MAX_STEPS_PER_LAUNCH)
-            key, sub = jax.random.split(key)
-            states = burnin_chain_fused(
-                sampler, states, sub, seg, x, y, batch_size=batch_size,
-                block_chains=block_chains, state_dtype=state_dtype,
-                mesh=mesh, axis_name=axis_name, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-            n_left -= seg
-        return states
-    if mesh is not None:
-        from pysgmcmc_tpu.parallel.mesh import CHAIN_AXIS
-
-        def body(local_states, local_key):
-            return burnin_chain_fused(
-                sampler, local_states, local_key, n_steps, x, y,
-                batch_size=batch_size, block_chains=block_chains,
-                state_dtype=state_dtype, pair_dots=pair_dots,
-                noise_impl=noise_impl, interpret=interpret,
-            )
-
-        return _run_sharded(
-            body, states, key, mesh, axis_name or CHAIN_AXIS)
-
-    from pysgmcmc_tpu.ops.fused_step import (
-        data_windows,
-        fused_bnn_multistep_burnin,
-        fused_bnn_multistep_burnin_sgld,
-        pack_fused,
-        unpack_fused,
-    )
-    from pysgmcmc_tpu.samplers._adaptive import AdaptiveStats
-
-    if isinstance(sampler, SGHMCSampler):
-        is_sghmc = True
-    elif isinstance(sampler, SGLDSampler):
-        is_sghmc = False
-    else:
-        raise NotImplementedError(
-            "burnin_chain_fused supports the adaptive (burn-in) samplers "
-            "SGHMC and SGLD; got {!r}".format(type(sampler).__name__)
-        )
-
-    h = states.position["w2"].shape[-1]
-    n_chains = states.position["w2"].shape[0]
-    w1 = states.position["w1"]
-    n_inputs = 1 if w1.ndim == 2 else w1.shape[1]
-    if n_chains < MIN_FUSED_CHAINS and not interpret:
-        # see sample_chain_fused: 1-row chain blocks fail Mosaic
-        # compilation on real TPUs; pad to the sublane minimum
-        new_states = burnin_chain_fused(
-            sampler, _pad_chain_axis(states, n_chains, MIN_FUSED_CHAINS),
-            key, n_steps, x, y, batch_size=batch_size,
-            block_chains=block_chains, state_dtype=state_dtype,
-            pair_dots=pair_dots, noise_impl=noise_impl,
-            interpret=interpret)
-        return _slice_chain_axis(new_states, MIN_FUSED_CHAINS, n_chains)
-    n_data = jnp.asarray(x).shape[0]
-    x_win, y_win = data_windows(x, y, batch_size)
-    block = _effective_block(block_chains, n_chains, interpret)
-
-    theta = pack_fused(states.position)
-    tau = pack_fused(states.stats.tau)
-    g = pack_fused(states.stats.g)
-    v_hat = pack_fused(states.stats.v_hat)
-
-    key, key_seed = jax.random.split(key)
-    base_seed = _base_seed(key_seed)
-    schedule_state0 = _shared_schedule_state(states, "burnin_chain_fused")
-    step0 = jnp.max(states.step) if jnp.ndim(states.step) else states.step
-    eps = jax.vmap(
-        lambda t: _schedule_eps(sampler, schedule_state0, step0 + t)
-    )(jnp.arange(int(n_steps)))
-    seed = base_seed + step0.astype(jnp.int32)
-    prior_scale = getattr(sampler, "gaussian_prior_scale", 0.0)
-
     if is_sghmc:
-        v = tuple(
-            a.astype(state_dtype) for a in pack_fused(states.momentum))
-        theta, v, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin(
-            theta, v, tau, g, v_hat, x_win, y_win, eps, seed,
-            mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-            prior_scale=prior_scale, batch_size=batch_size,
-            n_data=int(n_data), block_chains=block,
-            state_dtype=state_dtype, k_steps=int(n_steps), h=int(h),
-            pair_dots=pair_dots, noise_impl=noise_impl, interpret=interpret,
-        )
-    else:
-        theta, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin_sgld(
-            theta, tau, g, v_hat, x_win, y_win, eps, seed,
-            a_coef=float(sampler.A), scale_grad=sampler.scale_grad,
-            prior_scale=prior_scale, batch_size=batch_size,
-            n_data=int(n_data), block_chains=block,
-            k_steps=int(n_steps), h=int(h), pair_dots=pair_dots,
-            noise_impl=noise_impl, interpret=interpret,
-        )
-
-    stats = AdaptiveStats(
-        tau=unpack_fused(tau, h, n_inputs),
-        g=unpack_fused(g, h, n_inputs),
-        v_hat=unpack_fused(v_hat, h, n_inputs),
-        minv=unpack_fused(minv, h, n_inputs),
-    )
-    if is_sghmc:
-        return SGHMCState(
-            position=unpack_fused(theta, h, n_inputs),
-            momentum=jax.tree_util.tree_map(
-                lambda l: l.astype(jnp.float32),
-                unpack_fused(v, h, n_inputs)),
-            stats=stats,
-            step=states.step + n_steps,
-            schedule_state=states.schedule_state,
-        )
-    return SGLDState(
-        position=unpack_fused(theta, h, n_inputs),
-        stats=stats,
-        step=states.step + n_steps,
-        schedule_state=states.schedule_state,
-    )
+        return SGHMCState(momentum=unpack_lanes(spec, v, jnp.float32), **common)
+    return SGLDState(**common)

@@ -3,16 +3,16 @@
 Unlike MCMC chains (embarrassingly parallel), SVGD particles *interact*
 every step through the kernel matrix, so sharding the ensemble requires
 real collectives: each device holds a particle shard, ``all_gather``s the
-flattened ensemble (and its gradients) over ICI, computes its local rows of
+flattened ensemble (and its gradients), computes its local rows of
 the RBF kernel against the global ensemble, and updates its shard.  The
 median-heuristic bandwidth is computed from the full distance matrix
 (gathered rows), so the sharded step is numerically identical to the
 single-device step (asserted in tests).
 
-This is the TPU-native answer to the reference's scalability ceiling: the
+This is the answer to the reference's scalability ceiling: the
 O(n^2) Python-loop ``pdist`` (``/root/reference/pysgmcmc/tensor_utils.py:
 405-409``) capped ensembles at a few dozen particles; here the quadratic
-work is MXU matmuls distributed over the mesh.
+work is matmuls distributed over the mesh.
 
 Examples
 --------

@@ -11,7 +11,7 @@ sampler is a pair of pure functions over an explicit state pytree:
 and an entire run is ONE ``lax.scan`` under ``jit`` (:func:`sample_chain`),
 so the hot loop never leaves XLA.  Thousands of independent chains are a
 ``vmap`` over ``init``/``step`` (see :mod:`pysgmcmc_tpu.parallel.chains`),
-sharded over a TPU mesh.
+sharded over a device mesh.
 
 The burn-in machinery of the reference (``BurnInMCMCSampler``,
 ``base_classes.py:313-456``) — Python-side ``is_burning_in`` branching plus a
@@ -67,14 +67,14 @@ class MCMCSampler:
     cost_fn : callable
         ``cost_fn(params)`` or ``cost_fn(params, batch)`` returning a scalar
         cost (negative log likelihood, ``U`` in the literature).  Gradients
-        are taken with JAX autodiff — the TPU-native replacement for
+        are taken with JAX autodiff — the replacement for
         ``tf.gradients`` in the reference (``samplers/sghmc.py:121-122``).
     stepsize_schedule : StepsizeSchedule or float
         Stepsize schedule evaluated in-graph each step.  A bare float is
         promoted to a :class:`ConstantStepsizeSchedule`.
     dtype : jnp dtype
         Element type for sampler state.  The reference defaults to float64
-        (``sghmc.py:34``); on TPU float32 is the native choice, and float64
+        (``sghmc.py:34``); here float32 is the default, and float64
         is available under ``jax.config.update("jax_enable_x64", True)``.
     """
 
@@ -150,7 +150,7 @@ def sample_chain(
     performed *inside* the scan with a nested scan, so unkept iterates are
     never materialized in HBM).
 
-    This is the TPU-native replacement for the reference's
+    This is the on-device replacement for the reference's
     ``islice(sampler, n)`` extraction loop
     (``diagnostics/sample_chains.py:166-169``): one compiled program instead
     of one ``session.run`` per sample.

@@ -1,12 +1,9 @@
-"""High-throughput SGHMC over stacked flat chains with the Pallas kernel.
+"""SGHMC over stacked flat chains.
 
-The flagship hot path for the north-star workload (8192 chains x 3-layer
-BNN): sampler state lives as six ``(n_chains, dim_padded)`` float32 arrays
-in HBM, gradients come from one vmapped XLA autodiff pass, and the entire
-update (burn-in EMAs, noise, momentum, position) is a single fused Pallas
-kernel (:mod:`pysgmcmc_tpu.ops.fused_update`) — one read and one write of
-each state array per step, with in-kernel RNG so the noise tensor never
-touches HBM.
+Sampler state lives as six ``(n_chains, dim)`` float32 arrays, gradients
+come from one vmapped autodiff pass, and the entire update (burn-in EMAs,
+noise, momentum, position) is one elementwise pass over the flat arrays,
+which XLA fuses.
 
 Equivalent math to :class:`pysgmcmc_tpu.samplers.sghmc.SGHMCSampler`
 (reference semantics ``/root/reference/pysgmcmc/samplers/sghmc.py:109-253``);
@@ -16,11 +13,10 @@ tests pin this path against it.
 Examples
 --------
 >>> import jax.numpy as jnp
->>> fused = FusedSGHMC(lambda p: jnp.sum(p["x"] ** 2),
-...                    {"x": jnp.zeros(2)}, interpret=True)
+>>> fused = FusedSGHMC(lambda p: jnp.sum(p["x"] ** 2), {"x": jnp.zeros(2)})
 >>> state = fused.init({"x": jnp.zeros((4, 2))})
->>> state.theta.shape  # 4 chains, dim padded to the 128-lane tile
-(4, 128)
+>>> state.theta.shape  # 4 chains, 2 parameters each
+(4, 2)
 >>> back = fused.unflatten_positions(state.theta)
 >>> back["x"].shape
 (4, 2)
@@ -32,11 +28,30 @@ import jax
 import jax.numpy as jnp
 from jax.flatten_util import ravel_pytree
 
-from pysgmcmc_tpu.ops.fused_update import fused_sghmc_update, pad_dim
+
+def update_math(theta, v, tau, g, v_hat, minv, grad, eta,
+                eps, eps_scaled, mdecay, burning_in):
+    """The SGHMC step, identical term-by-term to samplers/sghmc.py."""
+    small = 1e-16
+    r = 1.0 / (tau + 1.0)
+    sqrt_vhat = jnp.sqrt(jnp.maximum(v_hat, 0.0))
+    minv_new = 1.0 / (sqrt_vhat + 2.0 * jnp.sign(sqrt_vhat) * small + small)
+    minv_used = jnp.where(burning_in, minv_new, minv)
+
+    denom = v_hat + 2.0 * jnp.sign(v_hat) * small + small
+    tau_new = tau + (-g * g * tau) / denom + 1.0
+    g_new = g - r * g + r * grad
+    v_hat_new = v_hat - r * v_hat + r * grad * grad
+
+    noise_var = 2.0 * eps_scaled**2 * mdecay * minv_used - eps_scaled**4
+    sigma = jnp.sqrt(jnp.maximum(noise_var, 1e-16))
+    v_new = v - eps**2 * minv_used * grad - mdecay * v + sigma * eta
+    theta_new = theta + v_new
+    return theta_new, v_new, tau_new, g_new, v_hat_new, minv_used
 
 
 class FusedSGHMCState(NamedTuple):
-    theta: Any  # (n_chains, dim_padded)
+    theta: Any  # (n_chains, dim)
     momentum: Any
     tau: Any
     g: Any
@@ -46,7 +61,7 @@ class FusedSGHMCState(NamedTuple):
 
 
 class FusedSGHMC:
-    """Stacked-chain SGHMC driven by the fused Pallas update kernel.
+    """Stacked-chain SGHMC with the update fused over flat state.
 
     Parameters mirror :class:`~pysgmcmc_tpu.samplers.sghmc.SGHMCSampler`;
     ``template_params`` fixes the parameter pytree structure that
@@ -61,44 +76,30 @@ class FusedSGHMC:
         burn_in_steps=3000,
         mdecay=0.05,
         scale_grad=1.0,
-        seed=0,
-        interpret=False,
-        backend="pallas",
         compute_dtype=None,
     ):
         flat, unravel = ravel_pytree(template_params)
         self.dim = int(flat.size)
-        self.dim_padded = pad_dim(self.dim)
         self.unravel = unravel
         self.cost_fn = cost_fn
         self.stepsize = float(stepsize)
         self.burn_in_steps = int(burn_in_steps)
         self.mdecay = float(mdecay)
         self.scale_grad = float(scale_grad)
-        self.seed = int(seed)
-        self.interpret = bool(interpret)
-        if backend not in ("pallas", "xla"):
-            raise ValueError("FusedSGHMC: backend must be 'pallas' or 'xla'")
-        # 'pallas': one-kernel update with in-kernel RNG.  'xla': the same
-        # flat update math as plain jnp ops (XLA's fusion of the flat layout
-        # measured slightly faster than the hand kernel on v5e; both beat
-        # the per-leaf pytree path, whose leaf fragmentation costs ~20%).
-        self.backend = backend
-        # Run the cost function's network in this dtype (bf16 = MXU native),
-        # gradients land back in f32 via the cast's transpose.
+        # Run the cost function's network in this dtype; gradients land
+        # back in f32 via the cast's transpose.
         self.compute_dtype = compute_dtype
 
     #  State ------------------------------------------------------------------
 
     def flatten_positions(self, stacked_params):
-        """(n_chains, ...) pytree -> (n_chains, dim_padded) float32."""
+        """(n_chains, ...) pytree -> (n_chains, dim) float32."""
         theta = jax.vmap(lambda p: ravel_pytree(p)[0])(stacked_params)
-        theta = jnp.asarray(theta, jnp.float32)
-        return jnp.pad(theta, ((0, 0), (0, self.dim_padded - self.dim)))
+        return jnp.asarray(theta, jnp.float32)
 
     def unflatten_positions(self, theta):
-        """(n_chains, dim_padded) -> (n_chains, ...) pytree."""
-        return jax.vmap(lambda row: self.unravel(row[: self.dim]))(theta)
+        """(n_chains, dim) -> (n_chains, ...) pytree."""
+        return jax.vmap(self.unravel)(theta)
 
     def init(self, stacked_params):
         theta = self.flatten_positions(stacked_params)
@@ -124,12 +125,12 @@ class FusedSGHMC:
             )
 
         def flat_cost(row, batch):
-            return self.cost_fn(maybe_cast(self.unravel(row[: self.dim])), batch)
+            return self.cost_fn(maybe_cast(self.unravel(row)), batch)
 
         if batch is None:
             costs, grads = jax.vmap(
                 jax.value_and_grad(lambda row: self.cost_fn(
-                    maybe_cast(self.unravel(row[: self.dim]))
+                    maybe_cast(self.unravel(row))
                 ))
             )(theta)
         else:
@@ -138,51 +139,27 @@ class FusedSGHMC:
             )(theta, batch)
         return costs, grads
 
-    def step(self, state, batch=None, key=None):
+    def step(self, state, batch=None, key=None, noise=None):
         """Advance all chains one step.  ``batch`` has a leading chain axis.
 
-        ``key`` is required for the 'xla' backend (host-of-scan threefry
-        noise); the 'pallas' backend derives its noise from the in-kernel
-        PRNG seeded by the step counter.
+        The injected noise is drawn from ``key``; ``noise`` optionally
+        injects the standard-normal draw (shaped like ``state.theta``)
+        instead.
         """
+        if key is None and noise is None:
+            raise ValueError("FusedSGHMC.step needs a key (or noise)")
         costs, grads = self._grads(state.theta, batch)
         burning_in = state.step < self.burn_in_steps
-
-        if self.backend == "xla":
-            if key is None:
-                raise ValueError("FusedSGHMC.step: backend='xla' needs a key")
-            from pysgmcmc_tpu.ops.fused_update import _update_math
-
-            eta = jax.random.normal(key, state.theta.shape, state.theta.dtype)
-            eps = jnp.asarray(self.stepsize, jnp.float32)
-            eps_scaled = eps / jnp.sqrt(jnp.asarray(self.scale_grad, jnp.float32))
-            theta, v, tau, g, v_hat, minv = _update_math(
-                state.theta, state.momentum, state.tau, state.g,
-                state.v_hat, state.minv, grads, eta,
-                eps, eps_scaled, jnp.asarray(self.mdecay, jnp.float32),
-                burning_in,
-            )
-        else:
-            # Per-step seed: a distinct odd-stride sequence per step keeps
-            # block seeds disjoint across steps.
-            seed = jnp.asarray(self.seed, jnp.int32) + state.step * jnp.int32(
-                2654435761 & 0x7FFFFFFF
-            )
-            theta, v, tau, g, v_hat, minv = fused_sghmc_update(
-                state.theta,
-                state.momentum,
-                state.tau,
-                state.g,
-                state.v_hat,
-                state.minv,
-                grads,
-                self.stepsize,
-                burning_in,
-                seed,
-                mdecay=self.mdecay,
-                scale_grad=self.scale_grad,
-                interpret=self.interpret,
-            )
+        if noise is None:
+            noise = jax.random.normal(key, state.theta.shape, state.theta.dtype)
+        eps = jnp.asarray(self.stepsize, jnp.float32)
+        eps_scaled = eps / jnp.sqrt(jnp.asarray(self.scale_grad, jnp.float32))
+        theta, v, tau, g, v_hat, minv = update_math(
+            state.theta, state.momentum, state.tau, state.g,
+            state.v_hat, state.minv, grads, noise,
+            eps, eps_scaled, jnp.asarray(self.mdecay, jnp.float32),
+            burning_in,
+        )
         return (
             FusedSGHMCState(theta, v, tau, g, v_hat, minv, state.step + 1),
             costs,

@@ -1,6 +1,6 @@
 """Relativistic Stochastic Gradient Hamiltonian Monte Carlo.
 
-TPU-native redesign of the reference sampler
+JAX redesign of the reference sampler
 (``/root/reference/pysgmcmc/samplers/relativistic_sghmc.py:13-141``), after
 Lu et al., "Relativistic Monte Carlo", AISTATS 2017.  Momentum magnitudes are
 bounded by the "speed of light" ``c``, making the sampler robust to gradient

@@ -1,6 +1,6 @@
 """Stochastic Gradient Hamiltonian Monte Carlo with scale-adapted burn-in.
 
-TPU-native redesign of the reference SGHMC sampler
+JAX redesign of the reference SGHMC sampler
 (``/root/reference/pysgmcmc/samplers/sghmc.py:12-253``): Chen, Fox & Guestrin
 (ICML 2014) with the Springenberg et al. (NIPS 2016) self-tuning burn-in
 (see :mod:`pysgmcmc_tpu.samplers._adaptive`).
@@ -21,8 +21,8 @@ stepsize squared while the noise uses ``eps_scaled`` — is preserved.
 
 Where the reference chains `tf.assign` ops under control dependencies and
 pays a ``session.run`` per step, this step is one pure function XLA fuses
-into a handful of elementwise kernels; :mod:`pysgmcmc_tpu.ops.fused_update`
-offers a hand-fused Pallas variant of the same math for the hot path.
+into a handful of elementwise kernels; :mod:`pysgmcmc_tpu.parallel.packed`
+applies the same math to packed multi-chain state.
 
 Examples
 --------
@@ -85,8 +85,8 @@ class SGHMCSampler(MCMCSampler):
         self.mdecay = float(mdecay)
         self.scale_grad = float(scale_grad)
         # noise_bits="rbg": generate the injected noise's random bits with
-        # the XLA RngBitGenerator instead of threefry (2.1x faster on TPU;
-        # stream separation still threefry) — see
+        # the XLA RngBitGenerator instead of threefry (stream separation
+        # still threefry) — see
         # :func:`pysgmcmc_tpu.utils.pytree.normal_like_tree`.
         self.noise_bits = noise_bits
         # With gaussian_prior_scale = s > 0 the update uses the analytic
@@ -125,9 +125,9 @@ class SGHMCSampler(MCMCSampler):
 
         ``noise`` optionally injects the standard-normal draw (a pytree
         shaped like the position) instead of drawing from ``key`` — used by
-        parity tests to compare bitwise against the fused Pallas kernel
-        (:func:`pysgmcmc_tpu.ops.fused_update.fused_sghmc_update`, which
-        accepts the same ``noise=`` argument).
+        parity tests to compare bitwise against the packed update rules
+        (:func:`pysgmcmc_tpu.parallel.packed.sghmc_update`, which takes the
+        same draw as ``eta``).
 
         ``phase`` statically specializes the step to one side of the
         burn-in boundary (``"burn_in"`` / ``"sampling"``); ``None`` keeps

@@ -1,6 +1,6 @@
 """Stochastic Gradient Langevin Dynamics with scale-adapted burn-in.
 
-TPU-native redesign of the reference SGLD sampler
+JAX redesign of the reference SGLD sampler
 (``/root/reference/pysgmcmc/samplers/sgld.py:12-213``): Welling & Teh (ICML
 2011) preconditioned by the Springenberg et al. (NIPS 2016) burn-in adaptation
 (see :mod:`pysgmcmc_tpu.samplers._adaptive`).

@@ -1,11 +1,11 @@
 """Stein Variational Gradient Descent over a particle ensemble.
 
-TPU-native redesign of the reference SVGD sampler
+JAX redesign of the reference SVGD sampler
 (``/root/reference/pysgmcmc/samplers/svgd.py:13-195``), after Liu & Wang,
 NIPS 2016.  The ensemble is a stacked ``(n_particles, ...)`` pytree; the
 per-particle cost is evaluated with ``vmap`` (replacing ``tf.map_fn``,
 ``svgd.py:87-88``), and the RBF kernel with median-heuristic bandwidth runs
-on the MXU (:mod:`pysgmcmc_tpu.ops.pairwise`) instead of the reference's
+as one Gram matmul (:mod:`pysgmcmc_tpu.ops.pairwise`) instead of the reference's
 O(n^2) Python-loop ``pdist`` (``tensor_utils.py:405-409``).
 
 Update (Adagrad-scaled, cf. ``svgd.py:121-144``):
@@ -103,7 +103,6 @@ class SVGDSampler(MCMCSampler):
         kernel_impl="dense",
         bandwidth_subsample=4096,
         streaming_tile=512,
-        streaming_interpret=False,
     ):
         if not isinstance(alpha, (int, float)):
             raise ValueError("SVGDSampler: alpha must be a number")
@@ -116,17 +115,16 @@ class SVGDSampler(MCMCSampler):
         super().__init__(cost_fn, stepsize_schedule, dtype)
         self.alpha = float(alpha)
         self.fudge_factor = float(fudge_factor)
-        # 'dense' materializes the kernel matrix (one MXU Gram matmul) —
-        # right up to ~32k particles.  'streaming' uses the flash-style
-        # Pallas kernel (ops/svgd_streaming.py): O(n d) memory, validated
-        # to 131k particles; the median bandwidth is then estimated from a
-        # *uniformly random* subsample of `bandwidth_subsample` particles
-        # drawn fresh each step from the step key (exact when
-        # n <= bandwidth_subsample), so an ordered ensemble carries no bias.
+        # 'dense' materializes the n x n kernel matrix (one Gram matmul).
+        # 'streaming' accumulates the kernel reductions over column tiles
+        # (ops/svgd_streaming.py): O(n * tile) memory.  Its median
+        # bandwidth is estimated from a *uniformly random* subsample of
+        # `bandwidth_subsample` particles drawn fresh each step from the
+        # step key (exact when n <= bandwidth_subsample), so an ordered
+        # ensemble carries no bias.
         self.kernel_impl = kernel_impl
         self.bandwidth_subsample = int(bandwidth_subsample)
         self.streaming_tile = int(streaming_tile)
-        self.streaming_interpret = bool(streaming_interpret)
 
     def init(self, particles, key=None):
         if isinstance(particles, (list, tuple)):
@@ -179,7 +177,6 @@ class SVGDSampler(MCMCSampler):
             phi = svgd_phi_streaming(
                 flat_particles, flat_grads, h,
                 tile=min(self.streaming_tile, n),
-                interpret=self.streaming_interpret,
             )
         else:
             kernel, grad_kernel = svgd_kernel(flat_particles)

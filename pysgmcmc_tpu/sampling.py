@@ -10,7 +10,7 @@ Differences from the reference, by design:
 - Every sampler is constructible here AND usable for model training.
   (The reference's ``is_supported`` returns True only for SGHMC/SGLD —
   ``sampling.py:64`` — because RSGHMC/SVGD never worked with its BNN; the
-  TPU BNN supports all of them, including SVGD via a vmapped particle
+  BNN here supports all of them, including SVGD via a vmapped particle
   ensemble of networks, fixing the reference's ``svgd.py:7-10`` interface
   wart.)
 - Two additions: ``PSGLD`` (RMSprop-preconditioned SGLD, Li et al. 2016)

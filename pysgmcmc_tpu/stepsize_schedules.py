@@ -3,7 +3,7 @@
 The reference models schedules as Python iterators with an ``update`` feedback
 hook, evaluated host-side and fed into the graph once per step
 (``/root/reference/pysgmcmc/stepsize_schedules.py:4-91``,
-``samplers/base_classes.py:195-197``).  On TPU that per-step host round trip
+``samplers/base_classes.py:195-197``).  On an accelerator that per-step host round trip
 would serialize the whole chain, so here a schedule is a pure function
 ``value(state, step) -> stepsize`` evaluated *inside* the jitted sampler step;
 the feedback hook becomes an explicit ``update(state, info) -> state``

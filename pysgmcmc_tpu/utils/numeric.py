@@ -1,6 +1,6 @@
 """Numerically-safe elementwise helpers.
 
-TPU-native counterparts of the reference's guard-rail ops
+JAX counterparts of the reference's guard-rail ops
 (``/root/reference/pysgmcmc/tensor_utils.py:211-323``): sign-aware safe
 division and clipped square root.  These are pure ``jnp`` functions that XLA
 fuses into surrounding elementwise chains, so they carry no runtime cost over
@@ -9,7 +9,7 @@ raw ``/`` and ``sqrt``.
 The reference also ships ``pdist``/``squareform``/``median`` helpers built
 from TF graph ops (``tensor_utils.py:160-576``).  Here ``median`` is a single
 sort on device; pairwise distances live in ``pysgmcmc_tpu.ops.pairwise`` as a
-matmul-based (MXU-friendly) implementation with an optional Pallas kernel.
+matmul-based implementation with a streaming variant for large ensembles.
 """
 
 import jax.numpy as jnp

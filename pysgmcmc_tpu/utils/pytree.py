@@ -4,7 +4,7 @@ The reference flattens every parameter into an ``(n, 1)`` column vector and
 reshapes it back on every step (``vectorize``/``unvectorize``,
 ``/root/reference/pysgmcmc/tensor_utils.py:17-153``).  With JAX pytrees the
 whole dance disappears: samplers update each leaf in place via ``tree_map``
-and only the fused Pallas kernels ravel (once, at trace time).
+and only the packed drivers ravel (once, at trace time).
 
 Examples
 --------
@@ -53,9 +53,9 @@ def normal_like_tree(key, tree, bits_impl=None):
 
     ``bits_impl="rbg"`` keeps the (high-quality) threefry key derivation but
     reinterprets each per-leaf key as an ``rbg`` key for the draw itself, so
-    the random *bits* come from the XLA ``RngBitGenerator`` — measured 2.1x
-    faster than threefry bit generation on TPU v5e with identical stream
-    independence (streams are still separated by threefry splits).  Draws
+    the random *bits* come from the XLA ``RngBitGenerator``, with the same
+    stream independence (streams are still separated by threefry splits).
+    Whether it is faster on a GPU is not measured.  Draws
     are deterministic in (key, shape, impl) but differ bitwise from the
     default threefry draws.
     """

@@ -260,52 +260,6 @@ def test_dense_network_option_trains():
 
 
 @pytest.mark.slow
-def test_fused_step_impl_trains_and_validates():
-    """step_impl='fused' (flash-SGHMC sampling phase) end to end on CPU.
-
-    CPU runs the kernel in interpret mode (zero in-kernel noise), so this
-    checks the integration plumbing; the posterior quality of the fused
-    path is gated on hardware (sinc predictive MSE 0.00018, see
-    docs/performance.md).
-    """
-    import pytest
-
-    x, y = _sinc_data()[:2]
-    bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", n_chains=2, n_nets=4,
-        n_iters=400, burn_in_steps=100, sample_steps=20, seed=2)
-    bnn.train(x, y)
-    assert bnn.is_trained
-    assert bnn._n_collected == 4
-    mean, variance = bnn.predict(x)
-    assert np.all(np.isfinite(mean))
-
-
-def test_fused_step_impl_ctor_validation():
-    with pytest.raises(ValueError, match="requires network='dense'"):
-        BayesianNeuralNetwork(step_impl="fused")
-    # the fused generators cover the 2-4 hidden-layer dense family
-    with pytest.raises(ValueError, match="2-4 hidden layers"):
-        BayesianNeuralNetwork(
-            step_impl="fused", network="dense", units=(50,))
-    with pytest.raises(ValueError, match="2-4 hidden layers"):
-        BayesianNeuralNetwork(
-            step_impl="fused", network="dense", units=(50,) * 5)
-    for ok_units in ((50, 50), (50, 50, 50, 50)):
-        BayesianNeuralNetwork(
-            step_impl="fused", network="dense", units=ok_units)
-    with pytest.raises(ValueError, match="step_impl='fused' supports"):
-        from pysgmcmc_tpu.sampling import Sampler
-
-        BayesianNeuralNetwork(
-            step_impl="fused", network="dense",
-            sampling_method=Sampler.SVGD)
-    # round 3: mesh composes with the fused path (sharded kernel drivers)
-    assert BayesianNeuralNetwork(
-        step_impl="fused", network="dense", mesh=object()).mesh is not None
-
-
-@pytest.mark.slow
 def test_lanes_step_impl_all_samplers():
     """step_impl='lanes' trains with every gradient-based sampler."""
     from pysgmcmc_tpu.sampling import Sampler
@@ -334,51 +288,6 @@ def test_lanes_step_impl_all_samplers():
         BayesianNeuralNetwork(step_impl="lanes", sampling_method=Sampler.SVGD)
 
 
-@pytest.mark.slow
-def test_fused_step_impl_widened_family():
-    """step_impl='fused' trains with the widened family (SGLD, PSGLD,
-    SGNHT, RelativisticSGHMC)."""
-    from pysgmcmc_tpu.sampling import Sampler
-
-    x, y = _sinc_data()[:2]
-    for method, kw in (
-        (Sampler.SGLD, {"stepsize_schedule": 0.01}),
-        (Sampler.PSGLD, {"stepsize_schedule": 1e-4}),
-        (Sampler.SGNHT, {"stepsize_schedule": 1e-3}),
-        (Sampler.RelativisticSGHMC, {"stepsize_schedule": 1e-3}),
-    ):
-        bnn = BayesianNeuralNetwork(
-            network="dense", step_impl="fused", sampling_method=method,
-            n_chains=2, n_nets=4, n_iters=300, burn_in_steps=60,
-            sample_steps=20, seed=3, log_every=None, **kw)
-        bnn.train(x, y)
-        assert bnn.is_trained
-        mean, variance = bnn.predict(x)
-        assert np.all(np.isfinite(mean)), method
-        assert np.all(np.isfinite(variance)), method
-
-
-@pytest.mark.slow
-def test_fused_step_impl_wide_hidden_width():
-    """H=100 trains through step_impl='fused' (the 128-slot layout)."""
-    x, y = _sinc_data()[:2]
-    bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", units=(100, 100, 100),
-        n_chains=2, n_nets=4, n_iters=300, burn_in_steps=60,
-        sample_steps=20, seed=4, log_every=None)
-    bnn.train(x, y)
-    assert bnn.samples["w2"].shape == (4, 100, 100)
-    mean, variance = bnn.predict(x)
-    assert np.all(np.isfinite(mean))
-
-    with pytest.raises(ValueError, match="up to 114"):
-        BayesianNeuralNetwork(
-            network="dense", step_impl="fused", units=(128, 128, 128))
-    with pytest.raises(ValueError, match="equal hidden widths"):
-        BayesianNeuralNetwork(
-            network="dense", step_impl="fused", units=(100, 50, 100))
-
-
 def test_lanes_step_impl_fast_smoke():
     """Tiny lanes-path training smoke for the fast CI lane (the full
     all-samplers sweep is @slow)."""
@@ -393,17 +302,10 @@ def test_lanes_step_impl_fast_smoke():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("impl", ["fused", "lanes"])
+@pytest.mark.parametrize("impl", ["pytree", "lanes"])
 def test_kernel_step_impls_train_under_mesh(impl):
-    """Model-level kernel fast paths compose with the chain mesh.
-
-    Regression: the model used to pick ``block_chains`` from the TOTAL
-    chain count, but under a mesh the packed drivers shard_map the chain
-    axis, so the kernel grid blocks over each device's LOCAL chains —
-    n_chains=8 on an 8-device mesh left one chain per shard and the
-    kernel rejected the 8-chain block.  Train end to end on the 8-device
-    virtual mesh through both kernel paths (the multi-step fused burn-in
-    and sampling drivers, and the lanes drivers)."""
+    """Both step_impls compose with the chain mesh: train end to end on
+    the 8-device virtual mesh, one chain per shard."""
     from pysgmcmc_tpu.parallel.mesh import chain_mesh
 
     x, y = _sinc_data()[:2]
@@ -418,63 +320,5 @@ def test_kernel_step_impls_train_under_mesh(impl):
 
     with pytest.raises(ValueError, match="divisible by the mesh size"):
         BayesianNeuralNetwork(
-            network="dense", step_impl="fused", mesh=chain_mesh(8),
+            network="dense", step_impl=impl, mesh=chain_mesh(8),
             n_chains=12, n_nets=12, log_every=None).train(x, y)
-
-
-def test_fused_pair_dots_model_smoke():
-    """pair_dots=True trains end to end through the model (interpret
-    mode on CPU) and validates its configuration in the constructor."""
-    x, y = _sinc_data()[:2]
-    # interpret-mode kernel steps dominate this test's runtime on CPU:
-    # keep the iteration budget at the smoke minimum (trained-state
-    # plumbing + finite predictions; accuracy gates live in the slow
-    # lane's end-to-end tests)
-    bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", n_chains=2, n_nets=4,
-        n_iters=120, burn_in_steps=40, sample_steps=20, seed=2,
-        pair_dots=True)
-    bnn.train(x, y)
-    assert bnn.is_trained
-    mean, _ = bnn.predict(x)
-    assert np.all(np.isfinite(mean))
-
-    with pytest.raises(ValueError, match="requires step_impl='fused'"):
-        BayesianNeuralNetwork(pair_dots=True)
-    from pysgmcmc_tpu.stepsize_schedules import PolynomialDecaySchedule
-
-    # step-varying schedules are exact through the multi-step kernels
-    # since round 4 (per-step SMEM eps rows) — pair_dots accepts them
-    BayesianNeuralNetwork(
-        network="dense", step_impl="fused", pair_dots=True,
-        stepsize_schedule=PolynomialDecaySchedule(1e-2))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("depth", [2, 4])
-def test_fused_model_parametric_depth(depth):
-    """2- and 4-hidden-layer BNNs train end to end through
-    step_impl='fused' (round-4 parametric-depth kernel generators,
-    incl. the kernelized burn-in), with sinc accuracy preserved."""
-    x_train, y_train, x_test, y_test = _sinc_data()
-    bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", units=(32,) * depth,
-        n_chains=2, n_nets=8, burn_in_steps=1000, seed=3,
-        log_every=None)
-    bnn.train(x_train, y_train)
-    assert bnn.is_trained
-    mean, variance = bnn.predict(x_test)
-    mse = float(np.mean((mean - y_test) ** 2))
-    assert np.isfinite(mean).all()
-    assert np.all(variance >= 0)
-    assert mse < 0.1, mse
-
-
-def test_fused_model_depth_validation():
-    with pytest.raises(ValueError, match="2-4 hidden"):
-        BayesianNeuralNetwork(
-            network="dense", step_impl="fused", units=(32,) * 5)
-    with pytest.raises(ValueError, match="3-hidden-layer"):
-        BayesianNeuralNetwork(
-            network="dense", step_impl="fused", units=(32, 32),
-            pair_dots=True)

@@ -1,8 +1,7 @@
 """Training-dispatch paths the rest of the suite leaves untouched
 (coverage-lane findings): the pytree multi-chain path without telemetry
 (``log_every=None`` routes past ``_train_chunked``), lanes-path
-telemetry, the fused-path input-width guard, and constructor
-validation branches."""
+telemetry, and constructor validation branches."""
 
 import logging
 import re
@@ -105,20 +104,6 @@ def test_lanes_without_telemetry_trains(caplog):
     assert bnn.is_trained
 
 
-def test_fused_input_width_guard():
-    from pysgmcmc_tpu.ops.fused_step import MAX_INPUTS
-
-    bnn = BayesianNeuralNetwork(
-        step_impl="fused", network="dense", n_nets=2, burn_in_steps=10,
-        sample_steps=5, batch_size=10, log_every=None,
-    )
-    rng = np.random.RandomState(0)
-    x = rng.uniform(size=(40, MAX_INPUTS + 1))
-    y = rng.uniform(size=(40,))
-    with pytest.raises(ValueError, match="input features"):
-        bnn.train(x, y)
-
-
 def test_ctor_validation_branches():
     with pytest.raises(ValueError, match="network"):
         BayesianNeuralNetwork(network="bogus")
@@ -126,8 +111,3 @@ def test_ctor_validation_branches():
         BayesianNeuralNetwork(step_impl="bogus")
     with pytest.raises(ValueError, match="units"):
         BayesianNeuralNetwork(units=(0, 8, 8))
-    with pytest.raises(ValueError, match="dense"):
-        BayesianNeuralNetwork(step_impl="fused", network="reference")
-    with pytest.raises(ValueError, match="hidden layers"):
-        BayesianNeuralNetwork(
-            step_impl="fused", network="dense", units=(8,) * 5)

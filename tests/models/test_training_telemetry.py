@@ -3,7 +3,7 @@
 The reference logs the full-training-set NLL/MSE every 512 burn-in
 iterations and at every collected sample
 (``/root/reference/pysgmcmc/models/bayesian_neural_network.py:472-519``).
-The TPU port chunks its compiled training scan at the log boundaries.
+Here the compiled training scan is chunked at the log boundaries.
 """
 
 import logging
@@ -118,10 +118,10 @@ def test_telemetry_deterministic(caplog):
 
 @pytest.mark.slow
 def test_fused_path_telemetry(caplog):
-    """step_impl='fused' chunks burn-in + per-sample logs like the
-    pytree chunked path (kernel in interpret mode on CPU)."""
+    """step_impl='lanes' chunks burn-in + per-sample logs like the
+    pytree chunked path."""
     bnn, matches = _train(
-        caplog, log_every=50, network="dense", step_impl="fused",
+        caplog, log_every=50, network="dense", step_impl="lanes",
         n_chains=2, n_nets=4, sample_steps=20,
     )
     burn_iters = [int(m.group(1)) for m in matches if m.group(4) is None]

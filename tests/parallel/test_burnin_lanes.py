@@ -1,13 +1,13 @@
-"""Burn-in lanes kernels + per-chain stepsize support.
+"""Burn-in update of the packed drivers + per-chain stepsize support.
 
-Round-3 additions: the fused burn-in EMA kernels
-(:func:`pysgmcmc_tpu.ops.slim_update.slim_sghmc_burnin_update` /
-``slim_sgld_burnin_update``) must match the pytree adaptive step given
-identical noise (tau/minv bitwise; the mul-add-bearing outputs to 1-2 ulp
-of FMA-contraction freedom), the chains-on-lanes drivers must
-support genuinely per-chain stepsizes (the ESS-sweep pattern), and the
-shared-stepsize drivers must refuse heterogeneous per-chain schedule
-state instead of silently collapsing it to chain 0.
+The self-tuning burn-in update
+(:func:`pysgmcmc_tpu.parallel.packed.adaptive_burnin_update`) must match
+the pytree adaptive step given identical noise (tau/minv bitwise; the
+mul-add-bearing outputs to 1-2 ulp of FMA-contraction freedom), the
+chains-on-lanes drivers must support genuinely per-chain stepsizes (the
+ESS-sweep pattern), and the shared-stepsize drivers must refuse
+heterogeneous per-chain schedule state instead of silently collapsing it
+to chain 0.
 """
 
 import jax
@@ -15,20 +15,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pysgmcmc_tpu.ops.slim_update import (
-    slim_sghmc_burnin_update,
-    slim_sghmc_update,
-    slim_sgld_burnin_update,
-)
 from pysgmcmc_tpu.parallel.packed import (
+    adaptive_burnin_update,
     burnin_chain_lanes,
     make_lanes_spec,
     make_pack_spec,
     pack_lanes,
-    pack_mask,
     pack_tree,
     sample_chain_lanes,
     sample_chain_stacked,
+    sghmc_update,
     unpack_lanes,
     unpack_tree,
 )
@@ -40,8 +36,7 @@ from pysgmcmc_tpu.utils.pytree import normal_like_tree
 
 
 def _template():
-    # small leaves: bitwise parity is shape-independent, and interpret-mode
-    # pallas cost scales with elements (this is the fast CI lane)
+    # small leaves: the parity is shape-independent
     return {
         "W1": jnp.zeros((1, 12)), "b1": jnp.zeros(12),
         "W2": jnp.zeros((12, 12)), "b2": jnp.zeros(12),
@@ -69,7 +64,7 @@ def _adapted_states(sampler, n, seed=0, steps=3):
 
 
 def test_sghmc_burnin_kernel_matches_pytree_bitwise():
-    """Given identical noise, the fused burn-in kernel == the adaptive
+    """Given identical noise, the packed burn-in update == the adaptive
     pytree step: position, momentum and every EMA statistic."""
     sampler = SGHMCSampler(
         _quad_cost, stepsize_schedule=0.05, burn_in_steps=100,
@@ -78,7 +73,6 @@ def test_sghmc_burnin_kernel_matches_pytree_bitwise():
     n = 3
     states = _adapted_states(sampler, n)
     spec = make_pack_spec(_template())
-    mask = pack_mask(spec)
 
     eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
         jax.random.split(jax.random.PRNGKey(2), n), states.position)
@@ -90,17 +84,15 @@ def test_sghmc_burnin_kernel_matches_pytree_bitwise():
 
     grads = jax.vmap(jax.grad(sampler.cost_fn))(
         states.position, jnp.zeros((n,)))
-    outs = slim_sghmc_burnin_update(
+    outs = adaptive_burnin_update(
         pack_tree(spec, states.position),
         pack_tree(spec, states.momentum),
         pack_tree(spec, states.stats.tau),
         pack_tree(spec, states.stats.g),
         pack_tree(spec, states.stats.v_hat),
-        pack_tree(spec, grads),
-        mask, eps=0.05, seed=0,
-        mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale,
-        noise=pack_tree(spec, eta), interpret=True,
+        pack_tree(spec, grads), jnp.float32(0.05), pack_tree(spec, eta),
+        sampler.scale_grad, sampler.gaussian_prior_scale,
+        mdecay=sampler.mdecay,
     )
     got = {
         "position": unpack_tree(spec, outs[0]),
@@ -141,7 +133,6 @@ def test_sgld_burnin_kernel_matches_pytree_bitwise():
     n = 3
     states = _adapted_states(sampler, n, seed=7)
     spec = make_pack_spec(_template())
-    mask = pack_mask(spec)
 
     eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
         jax.random.split(jax.random.PRNGKey(3), n), states.position)
@@ -153,23 +144,20 @@ def test_sgld_burnin_kernel_matches_pytree_bitwise():
 
     grads = jax.vmap(jax.grad(sampler.cost_fn))(
         states.position, jnp.zeros((n,)))
-    outs = slim_sgld_burnin_update(
-        pack_tree(spec, states.position),
+    outs = adaptive_burnin_update(
+        pack_tree(spec, states.position), None,
         pack_tree(spec, states.stats.tau),
         pack_tree(spec, states.stats.g),
         pack_tree(spec, states.stats.v_hat),
-        pack_tree(spec, grads),
-        mask, eps=0.01, seed=0,
-        a_coef=float(sampler.A), scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale,
-        noise=pack_tree(spec, eta), interpret=True,
+        pack_tree(spec, grads), jnp.float32(0.01), pack_tree(spec, eta),
+        sampler.scale_grad, sampler.gaussian_prior_scale, a_coef=sampler.A,
     )
     got = {
         "position": unpack_tree(spec, outs[0]),
-        "tau": unpack_tree(spec, outs[1]),
-        "g": unpack_tree(spec, outs[2]),
-        "v_hat": unpack_tree(spec, outs[3]),
-        "minv": unpack_tree(spec, outs[4]),
+        "tau": unpack_tree(spec, outs[2]),
+        "g": unpack_tree(spec, outs[3]),
+        "v_hat": unpack_tree(spec, outs[4]),
+        "minv": unpack_tree(spec, outs[5]),
     }
     ref = {
         "position": ref_state.position,
@@ -195,7 +183,7 @@ def test_sgld_burnin_kernel_matches_pytree_bitwise():
 
 @pytest.mark.parametrize("kind", ["sghmc", "sgld"])
 def test_burnin_chain_lanes_driver(kind):
-    """The burn-in lanes driver (xla backend) adapts the EMAs sanely."""
+    """The burn-in lanes driver adapts the EMAs sanely."""
     if kind == "sghmc":
         sampler = SGHMCSampler(
             _quad_cost, stepsize_schedule=0.05, burn_in_steps=1000,
@@ -214,7 +202,7 @@ def test_burnin_chain_lanes_driver(kind):
 
     run = jax.jit(lambda s, k: burnin_chain_lanes(
         sampler, s, k, 50, batch_fn=lambda kk: jnp.zeros(()),
-        compute_dtype=None, backend="xla"))
+        compute_dtype=None))
     out = run(states, jax.random.PRNGKey(1))
 
     assert int(out.step[0]) == 50
@@ -233,12 +221,12 @@ def test_burnin_chain_lanes_driver(kind):
 
 
 def test_burnin_lanes_pallas_interpret_matches_xla():
-    """pallas (interpret, injected noise) == xla backend, bitwise, via the
-    kernel on the lanes layout."""
+    """The burn-in update on the lanes layout (chains on the minor axis,
+    128 chains) == the adaptive pytree step, chain for chain."""
     sampler = SGHMCSampler(
         _quad_cost, stepsize_schedule=0.05, burn_in_steps=100,
         scale_grad=10.0)
-    n = 128  # lanes layout: chains on the 128-lane axis
+    n = 128
     template = {"x": jnp.zeros(4), "y": jnp.zeros((2, 3))}
     rng = np.random.RandomState(1)
     positions = {
@@ -249,62 +237,33 @@ def test_burnin_lanes_pallas_interpret_matches_xla():
         positions, jax.random.split(jax.random.PRNGKey(0), n))
     spec = make_lanes_spec(
         jax.tree_util.tree_map(lambda l: l[0], states.position))
+    eta = jax.vmap(normal_like_tree)(
+        jax.random.split(jax.random.PRNGKey(9), n), states.position)
+    ref, _ = jax.vmap(
+        lambda s, e: sampler.step(
+            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e,
+            phase="burn_in")
+    )(states, eta)
 
-    theta = pack_lanes(spec, states.position)
-    v = pack_lanes(spec, states.momentum)
-    tau = pack_lanes(spec, states.stats.tau)
-    g = pack_lanes(spec, states.stats.g)
-    v_hat = pack_lanes(spec, states.stats.v_hat)
     grads = jax.vmap(jax.grad(lambda p: _quad_cost(p, None)))(
         states.position)
-    grad_flat = pack_lanes(spec, grads)
-    eta = jax.random.normal(jax.random.PRNGKey(9), theta.shape)
-
-    outs = slim_sghmc_burnin_update(
-        theta, v, tau, g, v_hat, grad_flat, None, 0.05, 0,
-        mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-        noise=eta, interpret=True)
-
-    # jnp mirror (the driver's xla backend math)
-    small = 1e-16
-    gg = grad_flat
-    sqrt_vhat = jnp.sqrt(jnp.maximum(v_hat, 0.0))
-    minv = 1.0 / (sqrt_vhat + 2.0 * jnp.sign(sqrt_vhat) * small + small)
-    denom = v_hat + 2.0 * jnp.sign(v_hat) * small + small
-    tau_ref = tau + (-g * g * tau) / denom + 1.0
-    r = 1.0 / (tau + 1.0)
-    g_ref = g - r * g + r * gg
-    v_hat_ref = v_hat - r * v_hat + r * gg * gg
-    eps = jnp.float32(0.05)
-    eps_scaled = eps / jnp.sqrt(jnp.float32(10.0))
-    sigma = jnp.sqrt(jnp.maximum(
-        2.0 * eps_scaled**2 * sampler.mdecay * minv - eps_scaled**4,
-        1e-16))
-    v_ref = v - eps**2 * minv * gg - sampler.mdecay * v + sigma * eta
-    theta_ref = theta + v_ref
-
-    # real rows only (padding rows carry a huge but harmless minv=1e16
-    # noise walk whose ulp-level FMA differences are magnified in absolute
-    # terms); tau/minv carry no fusable mul-add patterns and match
-    # bitwise, the rest to 1-2 ulp of FMA-contraction freedom
-    real = np.zeros(spec.rows, bool)
-    for off, size in zip(spec.offsets, spec.sizes):
-        real[off:off + size] = True
-    for a, b, exact in (
-        (outs[0], theta_ref, False), (outs[1], v_ref, False),
-        (outs[2], tau_ref, True), (outs[3], g_ref, False),
-        (outs[4], v_hat_ref, False), (outs[5], minv, True),
-    ):
-        a = np.asarray(a)[real]
-        b = np.asarray(b)[real]
-        if exact:
-            np.testing.assert_array_equal(a, b)
-        else:
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+    outs = adaptive_burnin_update(
+        pack_lanes(spec, states.position), pack_lanes(spec, states.momentum),
+        pack_lanes(spec, states.stats.tau), pack_lanes(spec, states.stats.g),
+        pack_lanes(spec, states.stats.v_hat), pack_lanes(spec, grads),
+        jnp.float32(0.05), pack_lanes(spec, eta), sampler.scale_grad,
+        mdecay=sampler.mdecay)
+    want = (ref.position, ref.momentum, ref.stats.tau, ref.stats.g,
+            ref.stats.v_hat, ref.stats.minv)
+    for got, ref_tree in zip(outs, want):
+        for a, b in zip(jax.tree_util.tree_leaves(ref_tree),
+                        jax.tree_util.tree_leaves(unpack_lanes(spec, got))):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_slim_update_per_chain_eps_row_matches_scalar():
-    """A per-chain eps row == per-chain scalar runs, column for column."""
+    """A per-chain eps row in the lanes update == per-chain scalar runs,
+    column for column."""
     n = 128
     rows = 16
     rng = np.random.RandomState(2)
@@ -316,17 +275,15 @@ def test_slim_update_per_chain_eps_row_matches_scalar():
     minv = jnp.abs(arr()) + 0.1
     eta = arr()
     eps_a, eps_b = 0.05, 0.002
-    kw = dict(mdecay=0.05, scale_grad=10.0, prior_scale=0.125,
-              interpret=True)
+    kw = dict(mdecay=0.05, scale_grad=10.0, prior_scale=0.125)
 
-    ta, va = slim_sghmc_update(
-        theta, v, grad, minv, None, eps_a, 0, noise=eta, **kw)
-    tb, vb = slim_sghmc_update(
-        theta, v, grad, minv, None, eps_b, 0, noise=eta, **kw)
+    ta, va = sghmc_update(
+        theta, v, grad, minv, jnp.float32(eps_a), eta, **kw)
+    tb, vb = sghmc_update(
+        theta, v, grad, minv, jnp.float32(eps_b), eta, **kw)
     eps_row = jnp.where(
         jnp.arange(n) < n // 2, jnp.float32(eps_a), jnp.float32(eps_b))
-    tc, vc = slim_sghmc_update(
-        theta, v, grad, minv, None, eps_row, 0, noise=eta, **kw)
+    tc, vc = sghmc_update(theta, v, grad, minv, eps_row[None, :], eta, **kw)
 
     half = n // 2
     np.testing.assert_array_equal(
@@ -365,7 +322,7 @@ def test_lanes_driver_per_chain_traced_stepsizes():
             lambda s, k: sample_chain_lanes(
                 sampler, s, k, 4,
                 batch_fn=lambda kk: jnp.zeros(()),
-                keep_every=2, compute_dtype=None, backend="xla")
+                keep_every=2, compute_dtype=None)
         )(states, jax.random.PRNGKey(5))
         return np.asarray(positions["x"])
 
@@ -399,12 +356,12 @@ def test_shared_drivers_refuse_heterogeneous_schedule_state():
     with pytest.raises(ValueError, match="heterogeneous"):
         sample_chain_stacked(
             sampler, states, jax.random.PRNGKey(1), 1,
-            batch_fn=lambda kk: jnp.zeros(()), backend="xla")
+            batch_fn=lambda kk: jnp.zeros(()))
 
     # homogeneous stacked state still collapses fine
     states_ok = states._replace(
         schedule_state=jnp.full(n, 0.01, jnp.float32))
     _, positions, _ = sample_chain_stacked(
         sampler, states_ok, jax.random.PRNGKey(1), 1,
-        batch_fn=lambda kk: jnp.zeros(()), backend="xla")
+        batch_fn=lambda kk: jnp.zeros(()))
     assert np.isfinite(np.asarray(positions["x"])).all()

@@ -92,7 +92,7 @@ def _fresh_multihost_state(monkeypatch):
 
     monkeypatch.setattr(mesh_mod, "_DISTRIBUTED_INITIALIZED", False)
     for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                "JAX_NUM_PROCESSES", "TPU_WORKER_HOSTNAMES"):
+                "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(var, raising=False)
     return mesh_mod
 
@@ -147,12 +147,12 @@ def test_initialize_multihost_autodetect_requires_cluster_env(
     initialize_multihost()  # no cluster advertised: never touches JAX
     assert calls == []
 
-    # a single-worker TPU plugin hostname is not a cluster either
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
+    # an empty variable advertises nothing
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "")
     initialize_multihost()
     assert calls == []
 
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-a,host-b")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     initialize_multihost()
     assert len(calls) == 1
 

@@ -1,8 +1,8 @@
 """Packed flat sampling-phase path: layout round-trips and math parity.
 
-The packed path (``parallel/packed.py`` + ``ops/slim_update.py``) must be
-bitwise-identical to the pytree sampler given identical noise, and
-statistically identical given its own noise stream.
+The packed update rules (``parallel/packed.py``) must match the pytree
+samplers' ``step`` given identical noise, and the drivers must be
+statistically identical given their own noise stream.
 """
 
 import jax
@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pysgmcmc_tpu.ops.slim_update import slim_sghmc_update
 from pysgmcmc_tpu.parallel.packed import (
     make_pack_spec,
     pack_mask,
     pack_tree,
     sample_chain_packed,
+    sghmc_update,
     unpack_tree,
 )
 from pysgmcmc_tpu.samplers.base import sample_chain
@@ -59,9 +59,8 @@ def test_pack_unpack_roundtrip():
 
 
 def test_slim_update_matches_pytree_step_bitwise():
-    """Given identical noise, the flat kernel math == SGHMCSampler.step."""
-    # small leaves: the parity is shape-independent and interpret-mode
-    # pallas cost scales with elements (fast CI lane)
+    """Given identical noise, the slot-packed SGHMC update ==
+    SGHMCSampler.step."""
     template = {
         "W1": jnp.zeros((1, 12)), "b1": jnp.zeros(12),
         "W2": jnp.zeros((12, 12)), "b2": jnp.zeros(12),
@@ -105,20 +104,17 @@ def test_slim_update_matches_pytree_step_bitwise():
             phase="sampling")
     )(states, eta)
 
-    # flat kernel step with the same noise packed
+    # packed step with the same noise packed
     theta = pack_tree(spec, states.position)
     v = pack_tree(spec, states.momentum)
     minv = pack_tree(spec, states.stats.minv)
-    mask = pack_mask(spec)
     eta_flat = pack_tree(spec, eta)
-    theta2, v2 = slim_sghmc_update(
+    theta2, v2 = sghmc_update(
         theta, v,
         pack_tree(spec, jax.vmap(jax.grad(sampler.cost_fn))(
             states.position, jnp.zeros((n,)))),
-        minv, mask, eps=0.05, seed=0,
-        mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale,
-        noise=eta_flat, interpret=True,
+        minv, jnp.float32(0.05), eta_flat,
+        sampler.mdecay, sampler.scale_grad, sampler.gaussian_prior_scale,
     )
     got_pos = unpack_tree(spec, theta2)
     got_mom = unpack_tree(spec, v2)
@@ -144,14 +140,8 @@ def _gaussian_sampler(**kwargs):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("backend", ["xla"])
-def test_packed_chain_samples_gaussian(backend):
-    """The packed driver's draws match the target's first two moments.
-
-    (The pallas backend's in-kernel PRNG needs real TPU hardware; its
-    math parity is pinned bitwise above, and the xla backend shares all
-    the layout plumbing.)
-    """
+def test_packed_chain_samples_gaussian():
+    """The packed driver's draws match the target's first two moments."""
     sampler = _gaussian_sampler()
     n = 16
     template = {"x": jnp.zeros(4), "y": jnp.zeros((2, 3))}
@@ -168,7 +158,7 @@ def test_packed_chain_samples_gaussian(backend):
 
     run = jax.jit(lambda s, k: sample_chain_packed(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, compute_dtype=None, backend=backend))
+        keep_every=5, compute_dtype=None))
     states, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -191,7 +181,7 @@ def test_packed_updates_state_bookkeeping():
     new_states, pos, costs = jax.jit(
         lambda s, k: sample_chain_packed(
             sampler, s, k, 3, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=2, compute_dtype=None, backend="xla")
+            keep_every=2, compute_dtype=None)
     )(states, jax.random.PRNGKey(1))
     assert int(new_states.step[0]) == 6
     assert costs.shape == (n, 3)
@@ -202,67 +192,9 @@ def test_packed_updates_state_bookkeeping():
 
 
 @pytest.mark.slow
-def test_stacked_update_tree_matches_pytree_step_bitwise():
-    """The leafwise kernel (native layout) == SGHMCSampler.step, same noise."""
-    from pysgmcmc_tpu.ops.slim_update import slim_sghmc_update_tree
-
-    template = _template()
-    rng = np.random.RandomState(2)
-    n = 4
-    positions = jax.tree_util.tree_map(
-        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
-                              jnp.float32), template)
-    sampler = SGHMCSampler(
-        lambda p, b: 0.5 * sum(jnp.sum(x**2) for x in
-                               jax.tree_util.tree_leaves(p)),
-        stepsize_schedule=0.05, burn_in_steps=2, scale_grad=10.0,
-        gaussian_prior_scale=0.25,
-    )
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), n))
-    states, _ = jax.vmap(
-        lambda s, k: sample_chain(
-            sampler, s, k, 1, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=2, collect_costs=False, phase="burn_in")
-    )(states, jax.random.split(jax.random.PRNGKey(1), n))
-
-    eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
-        jax.random.split(jax.random.PRNGKey(2), n), states.position)
-    ref_state, _ = jax.vmap(
-        lambda s, e: sampler.step(
-            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e,
-            phase="sampling")
-    )(states, eta)
-
-    grads = jax.vmap(jax.grad(sampler.cost_fn))(
-        states.position, jnp.zeros((n,)))
-    outs = slim_sghmc_update_tree(
-        states.position, states.momentum, grads, states.stats.minv,
-        eps=0.05, seed=0,
-        mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale,
-        noise=eta, emit_bf16=True, interpret=True,
-    )
-    theta2, v2, theta_bf16 = outs
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.position),
-                    jax.tree_util.tree_leaves(theta2)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.momentum),
-                    jax.tree_util.tree_leaves(v2)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(theta2),
-                    jax.tree_util.tree_leaves(theta_bf16)):
-        assert b.dtype == jnp.bfloat16
-        np.testing.assert_array_equal(
-            np.asarray(a).astype(jnp.bfloat16), np.asarray(b))
-
-
-@pytest.mark.slow
 @pytest.mark.parametrize("bf16_params", [False, True])
 def test_stacked_chain_samples_gaussian(bf16_params):
-    """The stacked driver (xla backend) matches the target's moments."""
+    """The stacked driver matches the target's moments."""
     from pysgmcmc_tpu.parallel.packed import sample_chain_stacked
 
     sampler = _gaussian_sampler()
@@ -281,7 +213,7 @@ def test_stacked_chain_samples_gaussian(bf16_params):
 
     run = jax.jit(lambda s, k: sample_chain_stacked(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, backend="xla", bf16_params=bf16_params))
+        keep_every=5, bf16_params=bf16_params))
     states, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -320,7 +252,7 @@ def test_lanes_pack_unpack_roundtrip():
 @pytest.mark.slow
 @pytest.mark.parametrize("state_dtype", ["f32", "bf16"])
 def test_lanes_chain_samples_gaussian(state_dtype):
-    """The chains-on-lanes driver (xla backend) matches target moments.
+    """The chains-on-lanes driver matches target moments.
 
     bf16 momentum/mass state perturbs each step by O(2^-8) relative on the
     momentum — far below the injected noise; the stationary moments must
@@ -345,8 +277,7 @@ def test_lanes_chain_samples_gaussian(state_dtype):
 
     run = jax.jit(lambda s, k: sample_chain_lanes(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, compute_dtype=None, backend="xla",
-        state_dtype=state_dtype))
+        keep_every=5, compute_dtype=None, state_dtype=state_dtype))
     states, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -368,61 +299,8 @@ def test_packed_rejects_non_sghmc():
 
 
 @pytest.mark.slow
-def test_slim_sgld_update_matches_pytree_step():
-    """The flat SGLD kernel math == SGLDSampler.step, same noise."""
-    from pysgmcmc_tpu.ops.slim_update import slim_sgld_update
-    from pysgmcmc_tpu.samplers.sgld import SGLDSampler
-
-    template = _template()
-    spec = make_pack_spec(template)
-    rng = np.random.RandomState(5)
-    n = 3
-    positions = jax.tree_util.tree_map(
-        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
-                              jnp.float32), template)
-    sampler = SGLDSampler(
-        lambda p, b: 0.5 * sum(jnp.sum(x**2) for x in
-                               jax.tree_util.tree_leaves(p)),
-        stepsize_schedule=0.01, burn_in_steps=2, scale_grad=10.0,
-        gaussian_prior_scale=0.125,
-    )
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), n))
-    states, _ = jax.vmap(
-        lambda s, k: sample_chain(
-            sampler, s, k, 1, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=2, collect_costs=False, phase="burn_in")
-    )(states, jax.random.split(jax.random.PRNGKey(1), n))
-
-    eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
-        jax.random.split(jax.random.PRNGKey(2), n), states.position)
-    ref_state, _ = jax.vmap(
-        lambda s, e: sampler.step(
-            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e,
-            phase="sampling")
-    )(states, eta)
-
-    grads = jax.vmap(jax.grad(sampler.cost_fn))(
-        states.position, jnp.zeros((n,)))
-    theta2 = slim_sgld_update(
-        pack_tree(spec, states.position),
-        pack_tree(spec, grads),
-        pack_tree(spec, states.stats.minv),
-        pack_mask(spec), eps=0.01, seed=0,
-        a_coef=float(sampler.A), scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale,
-        noise=pack_tree(spec, eta), interpret=True,
-    )
-    got = unpack_tree(spec, theta2)
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.position),
-                    jax.tree_util.tree_leaves(got)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow
 def test_lanes_sgld_samples_gaussian():
-    """The lanes driver with SGLD (xla backend) matches target moments."""
+    """The lanes driver with SGLD matches target moments."""
     from pysgmcmc_tpu.parallel.packed import sample_chain_lanes
     from pysgmcmc_tpu.samplers.sgld import SGLDSampler
 
@@ -446,7 +324,7 @@ def test_lanes_sgld_samples_gaussian():
 
     run = jax.jit(lambda s, k: sample_chain_lanes(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, compute_dtype=None, backend="xla"))
+        keep_every=5, compute_dtype=None))
     states, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -459,63 +337,8 @@ def test_lanes_sgld_samples_gaussian():
 
 
 @pytest.mark.slow
-def test_slim_psgld_update_matches_pytree_step():
-    """The flat pSGLD kernel math == PSGLDSampler.step, same noise."""
-    from pysgmcmc_tpu.ops.slim_update import slim_psgld_update
-    from pysgmcmc_tpu.samplers.psgld import PSGLDSampler
-
-    template = _template()
-    spec = make_pack_spec(template)
-    rng = np.random.RandomState(7)
-    n = 3
-    positions = jax.tree_util.tree_map(
-        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
-                              jnp.float32), template)
-    sampler = PSGLDSampler(
-        lambda p, b: 0.5 * sum(jnp.sum(x**2) for x in
-                               jax.tree_util.tree_leaves(p)),
-        stepsize_schedule=0.01, scale_grad=10.0,
-    )
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), n))
-    # a couple of steps so the accumulator is non-trivial
-    states, _ = jax.vmap(
-        lambda s, k: sample_chain(
-            sampler, s, k, 1, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=3, collect_costs=False)
-    )(states, jax.random.split(jax.random.PRNGKey(1), n))
-
-    eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
-        jax.random.split(jax.random.PRNGKey(2), n), states.position)
-    ref_state, _ = jax.vmap(
-        lambda s, e: sampler.step(
-            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e)
-    )(states, eta)
-
-    grads = jax.vmap(jax.grad(sampler.cost_fn))(
-        states.position, jnp.zeros((n,)))
-    theta2, v2 = slim_psgld_update(
-        pack_tree(spec, states.position),
-        pack_tree(spec, states.v),
-        pack_tree(spec, grads),
-        pack_mask(spec), eps=0.01, seed=0,
-        alpha=sampler.alpha, lambda_reg=sampler.lambda_reg,
-        scale_grad=sampler.scale_grad,
-        noise=pack_tree(spec, eta), interpret=True,
-    )
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.position),
-                    jax.tree_util.tree_leaves(unpack_tree(spec, theta2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.v),
-                    jax.tree_util.tree_leaves(unpack_tree(spec, v2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow
 def test_lanes_psgld_samples_gaussian():
-    """The lanes driver with pSGLD (xla backend) matches target moments."""
+    """The lanes driver with pSGLD matches target moments."""
     from pysgmcmc_tpu.parallel.packed import sample_chain_lanes
     from pysgmcmc_tpu.samplers.psgld import PSGLDSampler
 
@@ -539,7 +362,7 @@ def test_lanes_psgld_samples_gaussian():
 
     run = jax.jit(lambda s, k: sample_chain_lanes(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, compute_dtype=None, backend="xla"))
+        keep_every=5, compute_dtype=None))
     states2, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -563,57 +386,6 @@ def test_lanes_psgld_samples_gaussian():
     ])
     assert abs(draws.mean() - ref.mean()) < 0.15
     assert abs(draws.std() - ref.std()) < 0.25 * ref.std()
-
-
-@pytest.mark.slow
-def test_slim_rsghmc_update_matches_pytree_step():
-    """The flat relativistic kernel math == RelativisticSGHMCSampler.step."""
-    from pysgmcmc_tpu.ops.slim_update import slim_rsghmc_update
-    from pysgmcmc_tpu.samplers.relativistic_sghmc import (
-        RelativisticSGHMCSampler,
-    )
-
-    template = _template()
-    spec = make_pack_spec(template)
-    rng = np.random.RandomState(9)
-    n = 3
-    positions = jax.tree_util.tree_map(
-        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
-                              jnp.float32), template)
-    sampler = RelativisticSGHMCSampler(
-        lambda p, b: 0.5 * sum(jnp.sum(x**2) for x in
-                               jax.tree_util.tree_leaves(p)),
-        stepsize_schedule=0.05,
-    )
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), n))
-
-    eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
-        jax.random.split(jax.random.PRNGKey(2), n), states.position)
-    ref_state, _ = jax.vmap(
-        lambda s, e: sampler.step(
-            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e)
-    )(states, eta)
-
-    grads = jax.vmap(jax.grad(sampler.cost_fn))(
-        states.position, jnp.zeros((n,)))
-    theta2, p2 = slim_rsghmc_update(
-        pack_tree(spec, states.position),
-        pack_tree(spec, states.momentum),
-        pack_tree(spec, grads),
-        pack_mask(spec), eps=0.05, seed=0,
-        d_coef=sampler.D, bhat=sampler.Bhat, mass=sampler.mass,
-        speed_of_light=sampler.speed_of_light,
-        noise=pack_tree(spec, eta), interpret=True,
-    )
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.position),
-                    jax.tree_util.tree_leaves(unpack_tree(spec, theta2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.momentum),
-                    jax.tree_util.tree_leaves(unpack_tree(spec, p2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
 
 
 @pytest.mark.slow
@@ -644,7 +416,7 @@ def test_lanes_rsghmc_samples_gaussian():
 
     run = jax.jit(lambda s, k: sample_chain_lanes(
         sampler, s, k, 400, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=5, compute_dtype=None, backend="xla"))
+        keep_every=5, compute_dtype=None))
     states2, positions_out, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l).reshape(-1)
@@ -667,29 +439,129 @@ def test_lanes_rsghmc_samples_gaussian():
     assert int(states2.step[0]) == 200 + 400 * 5
 
 
-def test_resolve_noise_impl_rules():
-    """'auto' resolution: CLT on the real fused path, Box-Muller under
-    interpret (zero PRNG bits must mean ZERO noise — the CLT generator's
-    zero-bit output is a -sqrt(12n)/2 lane-0 constant that, eagerly
-    resolved, injected a persistent per-step bias into every CPU model
-    training run) and for the paired kernels (box_muller only)."""
-    from pysgmcmc_tpu.parallel.packed import resolve_noise_impl
+def _lanes_parity_case(kind):
+    """(sampler, phase) of one lanes-vs-pytree parity case."""
+    from pysgmcmc_tpu.samplers.psgld import PSGLDSampler
+    from pysgmcmc_tpu.samplers.relativistic_sghmc import (
+        RelativisticSGHMCSampler,
+    )
+    from pysgmcmc_tpu.samplers.sgld import SGLDSampler
+    from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler
 
-    assert resolve_noise_impl("auto") == "hadamard_clt"
-    assert resolve_noise_impl("auto", pair_dots=True) == "box_muller"
-    assert resolve_noise_impl("auto", interpret=True) == "box_muller"
-    assert resolve_noise_impl("box_muller") == "box_muller"
-    assert resolve_noise_impl("hadamard_clt", interpret=True) == \
-        "hadamard_clt"
+    def cost(p, b):
+        return 0.5 * sum(jnp.sum(x**2) for x in jax.tree_util.tree_leaves(p))
+
+    common = dict(gaussian_prior_scale=0.125)
+    if kind.startswith("sghmc"):
+        sampler = SGHMCSampler(cost, stepsize_schedule=0.05, burn_in_steps=3,
+                               scale_grad=10.0, **common)
+    elif kind.startswith("sgld"):
+        sampler = SGLDSampler(cost, stepsize_schedule=0.01, burn_in_steps=3,
+                              scale_grad=10.0, **common)
+    elif kind == "psgld":
+        sampler = PSGLDSampler(cost, stepsize_schedule=0.01, scale_grad=10.0,
+                               **common)
+    elif kind == "rsghmc":
+        sampler = RelativisticSGHMCSampler(cost, stepsize_schedule=0.05,
+                                           **common)
+    else:
+        sampler = SGNHTSampler(cost, stepsize_schedule=0.01, scale_grad=10.0,
+                               **common)
+    phase = "burn_in" if kind.endswith("burn_in") else "sampling"
+    return sampler, phase
 
 
-def test_model_keeps_noise_impl_unresolved():
-    """The model must NOT resolve 'auto' at construction: the drivers
-    resolve per call with the interpret flag (regression: bc9b8ee)."""
-    from pysgmcmc_tpu.models.bayesian_neural_network import (
-        BayesianNeuralNetwork,
+@pytest.mark.parametrize("kind", [
+    "sghmc", "sgld", "psgld", "rsghmc", "sgnht",
+    "sghmc_burn_in", "sgld_burn_in",
+])
+def test_lanes_update_matches_pytree_step_bitwise(kind):
+    """The lanes drivers' update rules on the (rows, chains) layout ==
+    the pytree sampler's step, given identical noise."""
+    from pysgmcmc_tpu.parallel.packed import (
+        adaptive_burnin_update,
+        make_lanes_spec,
+        pack_lanes,
+        psgld_update,
+        rsghmc_update,
+        sgld_update,
+        sgnht_update,
+        unpack_lanes,
     )
 
-    bnn = BayesianNeuralNetwork(network="dense", step_impl="fused")
-    assert bnn.noise_impl == "auto"
-    assert BayesianNeuralNetwork().noise_impl == "box_muller"
+    sampler, phase = _lanes_parity_case(kind)
+    n = 5
+    rng = np.random.RandomState(11)
+    template = {"W": jnp.zeros((3, 4)), "b": jnp.zeros(4)}
+    positions = jax.tree_util.tree_map(
+        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
+                              jnp.float32), template)
+    states = jax.vmap(sampler.init)(
+        positions, jax.random.split(jax.random.PRNGKey(0), n))
+    n_pre = 1 if phase == "burn_in" else 3
+    states, _ = jax.vmap(
+        lambda s, k: sample_chain(
+            sampler, s, k, 1, batch_fn=lambda kk: jnp.zeros(()),
+            keep_every=n_pre, collect_costs=False)
+    )(states, jax.random.split(jax.random.PRNGKey(1), n))
+    eta = jax.vmap(normal_like_tree)(
+        jax.random.split(jax.random.PRNGKey(2), n), states.position)
+    ref, _ = jax.vmap(
+        lambda s, e: sampler.step(
+            s, jax.random.PRNGKey(0), jnp.zeros(()), noise=e, phase=phase)
+    )(states, eta)
+
+    spec = make_lanes_spec(template)
+
+    def pk(tree):
+        return pack_lanes(spec, tree)
+
+    grads = jax.vmap(jax.grad(sampler.cost_fn))(
+        states.position, jnp.zeros((n,)))
+    eps = jnp.float32(sampler.stepsize_schedule.initial_value)
+    args = (pk(states.position), pk(grads), eps, pk(eta))
+    prior = sampler.gaussian_prior_scale
+    got, want = {}, {"position": ref.position}
+    if phase == "burn_in":
+        stats = states.stats
+        theta, v, tau, g, v_hat, minv = adaptive_burnin_update(
+            args[0], pk(states.momentum) if kind.startswith("sghmc") else None,
+            pk(stats.tau), pk(stats.g), pk(stats.v_hat), args[1], eps,
+            args[3], sampler.scale_grad, prior,
+            mdecay=getattr(sampler, "mdecay", None),
+            a_coef=getattr(sampler, "A", None))
+        got.update(position=theta, tau=tau, g=g, v_hat=v_hat, minv=minv)
+        want.update(tau=ref.stats.tau, g=ref.stats.g, v_hat=ref.stats.v_hat,
+                    minv=ref.stats.minv)
+        if v is not None:
+            got["momentum"], want["momentum"] = v, ref.momentum
+    elif kind == "sghmc":
+        got["position"], got["momentum"] = sghmc_update(
+            args[0], pk(states.momentum), args[1], pk(states.stats.minv),
+            eps, args[3], sampler.mdecay, sampler.scale_grad, prior)
+        want["momentum"] = ref.momentum
+    elif kind == "sgld":
+        got["position"] = sgld_update(
+            args[0], args[1], pk(states.stats.minv), eps, args[3],
+            sampler.A, sampler.scale_grad, prior)
+    elif kind == "psgld":
+        got["position"], got["v"] = psgld_update(
+            args[0], pk(states.v), args[1], eps, args[3], sampler.alpha,
+            sampler.lambda_reg, sampler.scale_grad, prior)
+        want["v"] = ref.v
+    elif kind == "rsghmc":
+        got["position"], got["momentum"] = rsghmc_update(
+            args[0], pk(states.momentum), args[1], eps, args[3], sampler.D,
+            sampler.Bhat, sampler.mass, sampler.speed_of_light, prior)
+        want["momentum"] = ref.momentum
+    else:
+        xi = states.xi.reshape(1, n)
+        got["position"], got["momentum"] = sgnht_update(
+            args[0], pk(states.momentum), args[1], xi, eps, args[3],
+            sampler.a_diff, sampler.scale_grad, prior)
+        want["momentum"] = ref.momentum
+    for name, value in got.items():
+        for a, b in zip(jax.tree_util.tree_leaves(want[name]),
+                        jax.tree_util.tree_leaves(unpack_lanes(spec, value))):
+            np.testing.assert_array_equal(
+                np.asarray(a), np.asarray(b), err_msg=name)

@@ -1,24 +1,16 @@
-"""The bench.py production program, end to end, on the virtual 8-device mesh.
+"""The bench.py program, end to end, on the virtual 8-device mesh.
 
-``__graft_entry__.dryrun_multichip`` drives every kernel path for one step;
-this is the complementary *correctness* statement at the production shape
-(round-5 verdict item 8): the exact program bench.py times on the chip —
-full (short) fused burn-in, then CLT-noise multi-step flash-SGHMC sampling
-(``noise_impl='auto'``, the shipped default) — run over the 8-virtual-device
-chain mesh, with the collected posterior pooled ACROSS shards into the
-multi-chain diagnostics.
+The flagship job — full (short) self-tuning burn-in, then SGHMC sampling
+on the XLA path — run over the 8-virtual-device chain mesh with
+:func:`pysgmcmc_tpu.parallel.chains.run_chains`, with the collected
+posterior pooled ACROSS shards into the multi-chain diagnostics.
 
 Assertions:
   * the pooled cross-shard function-space ESS and PSRF are finite,
   * the collected posterior is invariant to the shard count — the 8-device,
     4-device and unsharded runs of the identical program produce bitwise
-    identical chains (interpret mode pins the in-kernel PRNG, so any
-    difference would be a real decomposition bug in the shard_map driver:
-    window arithmetic, schedule step bases, or pack/unpack layout).
-
-This is the closest-to-production multi-chip statement a single-host CI
-environment can make; the same code path runs unmodified on a real pod
-slice (SURVEY.md §2 "Parallelism & communication").
+    identical chains (any difference would be a decomposition bug in the
+    sharded runner: key placement, chain order, or layout).
 """
 
 import jax
@@ -30,11 +22,8 @@ from pysgmcmc_tpu.diagnostics.sampler_diagnostics import (
     effective_sample_size,
     gelman_rubin,
 )
+from pysgmcmc_tpu.parallel.chains import run_chains
 from pysgmcmc_tpu.parallel.mesh import chain_mesh
-from pysgmcmc_tpu.parallel.packed import (
-    burnin_chain_fused,
-    sample_chain_fused,
-)
 
 pytestmark = pytest.mark.slow
 
@@ -45,60 +34,31 @@ N_SAMPLES = 6
 KEEP_EVERY = 4
 
 
-def _bench_workload():
+def _run(mesh):
     # tests/conftest inserts the repo root on sys.path
     from bench import build_workload
 
-    sampler, positions, _, (x, y) = build_workload(
-        N_CHAINS, network="dense", return_data=True)
-    sampler.burn_in_steps = BURN_IN  # full burn-in, CI-sized
-    return sampler, positions, x, y
-
-
-def _run(mesh):
-    # Both phases run UNDER jax.jit, exactly like production (bench.py,
-    # the model's _train_fused): one compiled program per phase instead
-    # of op-by-op eager dispatch through the shard_map trace — which is
-    # both the shape users run and the cure for an intermittent
-    # eager-dispatch stall this test hit on a loaded single-CPU host.
-    sampler, positions, x, y = _bench_workload()
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), N_CHAINS))
-    # phase 1: the full self-tuning burn-in, fused driver
-    states = jax.jit(lambda s, k: burnin_chain_fused(
-        sampler, s, k, BURN_IN, x, y,
-        batch_size=20, block_chains=2, state_dtype=jnp.float32,
-        mesh=mesh, interpret=True))(states, jax.random.PRNGKey(1))
-    # phase 2: steady-state sampling, multi-step kernel, shipped default
-    # noise generator (noise_impl='auto' -> hadamard_clt)
-    states, chains, costs = jax.jit(lambda s, k: sample_chain_fused(
-        sampler, s, k, N_SAMPLES, x, y,
-        batch_size=20, keep_every=KEEP_EVERY, block_chains=2,
-        state_dtype=jnp.float32, multistep=True, mesh=mesh,
-        interpret=True))(states, jax.random.PRNGKey(2))
-    # Fully drain this program before the caller dispatches the next:
-    # the multi-device interpret machinery simulates cross-device
-    # barriers with io_callback clock updates, and two overlapping
-    # async-dispatched mesh programs can stall each other's barriers
-    # (observed as a zero-CPU futex hang on this single-CPU host).
-    jax.block_until_ready((states, chains, costs))
-    jax.effects_barrier()
-    return states, chains, costs
+    sampler, positions, select_batch = build_workload(
+        N_CHAINS, burn_in_steps=BURN_IN)
+    chains, costs = run_chains(
+        sampler, positions, jax.random.PRNGKey(2), N_SAMPLES + BURN_IN
+        // KEEP_EVERY, batch_fn=select_batch, keep_every=KEEP_EVERY,
+        mesh=mesh)
+    burn = BURN_IN // KEEP_EVERY
+    chains = jax.tree_util.tree_map(lambda leaf: leaf[:, burn:], chains)
+    return chains, costs[:, burn:]
 
 
 def test_bench_program_on_8_device_mesh_pooled_diagnostics():
-    states, chains, costs = _run(chain_mesh(8))
+    chains, costs = _run(chain_mesh(8))
 
-    assert int(np.asarray(states.step)[0]) == BURN_IN + N_SAMPLES * KEEP_EVERY
     assert costs.shape == (N_CHAINS, N_SAMPLES)
     assert np.isfinite(np.asarray(costs)).all()
 
-    # Pool the shards into function-space multi-chain diagnostics: the
-    # posterior draws live sharded over 8 devices; the diagnostics consume
-    # the global (n_chains, n_samples, ...) view directly.
-    from pysgmcmc_tpu.models.architectures import dense_network
+    # Pool the shards into function-space multi-chain diagnostics.
+    from pysgmcmc_tpu.models.architectures import default_network
 
-    _, apply_fn = dense_network(1)
+    _, apply_fn = default_network(1)
     probes = jnp.linspace(0.0, 1.0, 8).reshape(8, 1)
     f_vals = jax.vmap(jax.vmap(lambda p: apply_fn(p, probes)[:, 0]))(chains)
     assert f_vals.shape == (N_CHAINS, N_SAMPLES, 8)
@@ -116,9 +76,9 @@ def test_bench_program_on_8_device_mesh_pooled_diagnostics():
 def test_bench_program_shard_count_invariant():
     """8-device == 4-device == unsharded, bitwise, chain for chain."""
     runs = {n: _run(chain_mesh(n) if n else None) for n in (8, 4, 0)}
-    _, chains8, costs8 = runs[8]
+    chains8, costs8 = runs[8]
     for n in (4, 0):
-        _, chains_n, costs_n = runs[n]
+        chains_n, costs_n = runs[n]
         np.testing.assert_array_equal(
             np.asarray(costs8), np.asarray(costs_n),
             err_msg="costs, {} vs 8 devices".format(n or "unsharded"))

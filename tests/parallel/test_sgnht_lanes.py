@@ -1,96 +1,24 @@
-"""SGNHT chains-on-lanes kernel path: math parity and moments.
+"""SGNHT on the chains-on-lanes driver: moments and the thermostat.
 
-The SGNHT slim kernel (:func:`pysgmcmc_tpu.ops.slim_update.
-slim_sgnht_update`) must match :class:`pysgmcmc_tpu.samplers.sgnht.
-SGNHTSampler` given identical noise; unlike the other lanes kernels its
-per-chain thermostat row only exists in the chains-on-lanes orientation
-(chains on the 128-lane minor axis), so parity is pinned in that layout.
+The update's parity with :class:`pysgmcmc_tpu.samplers.sgnht.SGNHTSampler`
+is pinned in ``tests/parallel/test_packed.py``; here the driver must
+thread the per-chain thermostat through the scan and sample the target.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from pysgmcmc_tpu.parallel.packed import (
-    make_lanes_spec,
-    pack_lanes,
-    sample_chain_lanes,
-    unpack_lanes,
-)
-from pysgmcmc_tpu.samplers.base import sample_chain
+from pysgmcmc_tpu.parallel.packed import sample_chain_lanes
 from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler
-from pysgmcmc_tpu.utils.pytree import normal_like_tree
 
 
 def _cost(p, b=None):
     return 0.5 * sum(jnp.sum(x**2) for x in jax.tree_util.tree_leaves(p))
 
 
-@pytest.mark.slow
-def test_slim_sgnht_update_matches_pytree_step():
-    """Flat kernel step == SGNHTSampler.step under injected noise."""
-    from pysgmcmc_tpu.ops.slim_update import slim_sgnht_update
-
-    template = {"x": jnp.zeros(5), "y": jnp.zeros((3, 4))}
-    n = 128  # chains on lanes: the kernel needs a 128-aligned minor axis
-    rng = np.random.RandomState(3)
-    positions = jax.tree_util.tree_map(
-        lambda l: jnp.asarray(rng.standard_normal((n,) + l.shape),
-                              jnp.float32), template)
-    sampler = SGNHTSampler(_cost, stepsize_schedule=0.05, a_diff=1.5,
-                           scale_grad=7.0)
-    states = jax.vmap(lambda p, k: sampler.init(p, k))(
-        positions, jax.random.split(jax.random.PRNGKey(0), n))
-    # a few pytree steps so xi and momentum are non-trivial and
-    # chain-heterogeneous
-    states, _ = jax.vmap(
-        lambda s, k: sample_chain(
-            sampler, s, k, 1, keep_every=3, collect_costs=False)
-    )(states, jax.random.split(jax.random.PRNGKey(1), n))
-    assert np.unique(np.asarray(states.xi)).size > 1
-
-    eta = jax.vmap(normal_like_tree, in_axes=(0, 0))(
-        jax.random.split(jax.random.PRNGKey(2), n), states.position)
-    ref_state, _ = jax.vmap(
-        lambda s, e: sampler.step(s, jax.random.PRNGKey(0), noise=e)
-    )(states, eta)
-
-    spec = make_lanes_spec(template)
-    grads = jax.vmap(jax.grad(_cost))(states.position)
-    theta2, p2 = slim_sgnht_update(
-        pack_lanes(spec, states.position),
-        pack_lanes(spec, states.momentum),
-        pack_lanes(spec, grads),
-        None,
-        jnp.asarray(states.xi, jnp.float32).reshape(1, n),
-        eps=0.05, seed=0,
-        a_diff=sampler.a_diff, scale_grad=sampler.scale_grad,
-        noise=pack_lanes(spec, eta), interpret=True,
-    )
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.position),
-                    jax.tree_util.tree_leaves(unpack_lanes(spec, theta2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(ref_state.momentum),
-                    jax.tree_util.tree_leaves(unpack_lanes(spec, p2))):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-6)
-
-    # the thermostat update lives in the driver: same reduction, packed
-    # rows masked to real entries
-    rowmask = np.zeros((spec.rows, 1), np.float32)
-    for off, size in zip(spec.offsets, spec.sizes):
-        rowmask[off:off + size] = 1.0
-    n_dim = float(sum(spec.sizes))
-    sumsq = np.sum((np.asarray(p2) * rowmask) ** 2, axis=0)
-    xi2 = np.asarray(states.xi) + 0.05 * (sumsq / n_dim - 1.0)
-    np.testing.assert_allclose(
-        np.asarray(ref_state.xi), xi2, rtol=1e-5)
-
-
 def test_lanes_sgnht_samples_gaussian():
-    """The lanes driver with SGNHT (xla backend) matches target moments
+    """The lanes driver with SGNHT matches target moments
     and threads the thermostat through the scan."""
     sampler = SGNHTSampler(_cost, stepsize_schedule=0.05)
     n = 16
@@ -102,8 +30,7 @@ def test_lanes_sgnht_samples_gaussian():
         positions, jax.random.split(jax.random.PRNGKey(4), n))
 
     run = jax.jit(lambda s, k: sample_chain_lanes(
-        sampler, s, k, 400, keep_every=5, compute_dtype=None,
-        backend="xla"))
+        sampler, s, k, 400, keep_every=5, compute_dtype=None))
     states, positions, costs = run(states, jax.random.PRNGKey(6))
     draws = np.concatenate([
         np.asarray(l)[:, 100:].reshape(-1)
@@ -119,27 +46,3 @@ def test_lanes_sgnht_samples_gaussian():
     # stationary mean (= mdecay analog ~ A for an exact gradient)
     assert np.unique(xi).size > 1
     assert np.isfinite(xi).all()
-
-
-@pytest.mark.slow
-def test_lanes_sgnht_pallas_interpret_consistent():
-    """Pallas (interpret) lanes driver: finite draws, correct moments —
-    the in-kernel RNG stream differs from threefry, so parity with the
-    xla backend is statistical, not bitwise."""
-    sampler = SGNHTSampler(_cost, stepsize_schedule=0.05)
-    n = 128
-    template = {"x": jnp.zeros(2)}
-    positions = jax.tree_util.tree_map(
-        lambda l: 0.1 * jax.random.normal(
-            jax.random.PRNGKey(7), (n,) + l.shape), template)
-    states = jax.vmap(lambda p, k: sampler.init(p, k))(
-        positions, jax.random.split(jax.random.PRNGKey(8), n))
-
-    states, positions, _ = sample_chain_lanes(
-        sampler, states, jax.random.PRNGKey(9), 150, keep_every=5,
-        compute_dtype=None, backend="pallas", interpret=True)
-    draws = np.asarray(positions["x"])[:, 50:].reshape(-1)
-    assert np.isfinite(draws).all()
-    assert abs(draws.mean()) < 0.15
-    assert abs(draws.std() - 1.0) < 0.2
-    assert np.isfinite(np.asarray(states.xi)).all()

@@ -1,11 +1,8 @@
-"""Mesh composition of the kernel fast paths (round-3, verdict item #1).
+"""Mesh composition of the packed lanes drivers.
 
-The lanes/fused drivers must compose with a device mesh: the whole driver
-body (gradient, pack, update kernel) runs SPMD per device over its local
-chains via ``shard_map``.  On the 8-device CPU mesh the xla backend stands
-in for the Pallas kernels (same schedule, threefry noise) and the fused
-path runs in interpret mode; the real kernels take the identical code path
-on chip (exercised by ``__graft_entry__.dryrun_multichip`` and bench.py).
+The lanes drivers must compose with a device mesh: the whole driver body
+(gradient, pack, update) runs SPMD per device over its local chains via
+``shard_map``, here on the 8-device virtual CPU mesh.
 """
 
 import jax
@@ -51,7 +48,7 @@ def test_lanes_sharded_runs_deterministic_and_sharded():
     def run():
         return jax.jit(lambda s, k: sample_chain_lanes(
             sampler, s, k, 3, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=2, compute_dtype=None, backend="xla", mesh=mesh,
+            keep_every=2, compute_dtype=None, mesh=mesh,
         ))(states, jax.random.PRNGKey(1))
 
     out_states, positions, costs = run()
@@ -87,8 +84,7 @@ def test_lanes_sharded_statistics_match_unsharded():
     def moments(mesh_arg, key):
         _, positions, _ = jax.jit(lambda s, k: sample_chain_lanes(
             sampler, s, k, 60, batch_fn=lambda kk: jnp.zeros(()),
-            keep_every=2, compute_dtype=None, backend="xla",
-            mesh=mesh_arg,
+            keep_every=2, compute_dtype=None, mesh=mesh_arg,
         ))(states, key)
         draws = np.concatenate([
             np.asarray(l)[:, 20:].ravel()
@@ -111,7 +107,7 @@ def test_burnin_sharded_runs_and_adapts():
 
     out = jax.jit(lambda s, k: burnin_chain_lanes(
         sampler, s, k, 20, batch_fn=lambda kk: jnp.zeros(()),
-        compute_dtype=None, backend="xla", mesh=mesh,
+        compute_dtype=None, mesh=mesh,
     ))(states, jax.random.PRNGKey(6))
 
     assert int(np.asarray(out.step)[0]) == 20
@@ -140,7 +136,7 @@ def test_lanes_sharded_2d_multihost_mesh():
 
     _, positions, costs = jax.jit(lambda s, k: sample_chain_lanes(
         sampler, s, k, 2, batch_fn=lambda kk: jnp.zeros(()),
-        keep_every=1, compute_dtype=None, backend="xla", mesh=mesh,
+        keep_every=1, compute_dtype=None, mesh=mesh,
     ))(states, jax.random.PRNGKey(9))
     assert np.isfinite(np.asarray(costs)).all()
     assert _n_devices_of(costs) == mesh.devices.size
@@ -155,4 +151,4 @@ def test_sharded_rejects_indivisible_chains():
     with pytest.raises(ValueError, match="divisible"):
         sample_chain_lanes(
             sampler, states, jax.random.PRNGKey(0), 1,
-            batch_fn=lambda kk: jnp.zeros(()), backend="xla", mesh=mesh)
+            batch_fn=lambda kk: jnp.zeros(()), mesh=mesh)

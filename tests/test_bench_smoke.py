@@ -1,8 +1,8 @@
 """Smoke tests for the driver-facing artifacts.
 
-bench.py executes only on real TPU hardware at the end of a round; these
-tests exercise its workload builder and one tiny measured run on CPU so
-API drift cannot silently break the benchmark (or the graft entry points).
+bench.py measures only on a GPU; these tests exercise its workload builder
+and programs at tiny sizes on CPU so API drift cannot silently break the
+benchmark (or the graft entry points).
 """
 
 import os
@@ -96,11 +96,8 @@ def test_graft_dryrun_multichip():
 
 
 def test_bench_dense_lanes_path_tiny():
-    """The bench headline path (dense workload + lanes driver) end to end.
-
-    CPU stands in with backend='xla' (the pallas in-kernel PRNG needs the
-    chip); the layout plumbing, dense network, and bf16 state are shared.
-    """
+    """The dense workload through the lanes driver, bf16 state, end to
+    end."""
     import jax.numpy as jnp
 
     from bench import build_workload
@@ -123,160 +120,24 @@ def test_bench_dense_lanes_path_tiny():
     states, _, costs = jax.jit(
         lambda s, k: sample_chain_lanes(
             sampler, s, k, 1, batch_fn=select_batch, keep_every=2,
-            backend="xla", state_dtype=jnp.bfloat16,
-            collect_positions=False)
+            state_dtype=jnp.bfloat16, collect_positions=False)
     )(states, jax.random.PRNGKey(1))
     assert costs.shape == (4, 1)
     assert np.isfinite(np.asarray(costs)).all()
 
 
-def test_bench_multistep_path_tiny():
-    """The bench headline path (multi-step fused kernel) end to end.
+def test_bench_chain_programs_tiny():
+    """The timed flagship programs (burn-in, then one sampling segment)."""
+    from bench import build_workload, chain_programs
 
-    Interpret mode on CPU checks the k-steps-per-launch plumbing; the
-    real kernel + quality gate run on the chip (docs/performance.md).
-    """
-    import jax.numpy as jnp
-
-    from bench import build_workload
-    from pysgmcmc_tpu.parallel.packed import sample_chain_fused
-    from pysgmcmc_tpu.samplers.base import sample_chain
-
-    sampler, positions, select_batch, (x, y) = build_workload(
-        n_chains=4, network="dense", return_data=True)
-
-    def one(position, ck):
-        k_init, k_burn = jax.random.split(ck)
-        state = sampler.init(position, k_init)
-        state, _ = sample_chain(
-            sampler, state, k_burn, 1, batch_fn=select_batch,
-            keep_every=3, collect_costs=False, phase="burn_in")
-        return state
-
-    states = jax.vmap(one)(
+    sampler, positions, select_batch = build_workload(
+        n_chains=4, burn_in_steps=3)
+    init_and_burn, sampling = chain_programs(
+        sampler, select_batch, burn_in_steps=3, scan_steps=2)
+    states = jax.jit(jax.vmap(init_and_burn))(
         positions, jax.random.split(jax.random.PRNGKey(0), 4))
-    states, _, costs = sample_chain_fused(
-        sampler, states, jax.random.PRNGKey(1), 2, x, y,
-        batch_size=20, keep_every=2, block_chains=4,
-        state_dtype=jnp.float32, collect_positions=False,
-        multistep=True, interpret=True)
-    assert costs.shape == (4, 2)
+    states, costs = jax.jit(jax.vmap(sampling))(
+        states, jax.random.split(jax.random.PRNGKey(1), 4))
+    assert costs.shape == (4,)
     assert np.isfinite(np.asarray(costs)).all()
-    assert int(states.step[0]) == 3 + 4
-
-
-def test_multistep_sgld_path_tiny():
-    """The SGLD multi-step fused kernel end to end (interpret mode)."""
-    import jax.numpy as jnp
-
-    from bench import build_workload
-    from pysgmcmc_tpu.parallel.packed import sample_chain_fused
-    from pysgmcmc_tpu.samplers.base import sample_chain
-    from pysgmcmc_tpu.samplers.sgld import SGLDSampler
-
-    base, positions, select_batch, (x, y) = build_workload(
-        n_chains=4, network="dense", return_data=True)
-    sampler = SGLDSampler(
-        base.cost_fn, stepsize_schedule=0.01, burn_in_steps=3,
-        scale_grad=base.scale_grad,
-        gaussian_prior_scale=base.gaussian_prior_scale)
-
-    def one(position, ck):
-        k_init, k_burn = jax.random.split(ck)
-        state = sampler.init(position, k_init)
-        state, _ = sample_chain(
-            sampler, state, k_burn, 1, batch_fn=select_batch,
-            keep_every=3, collect_costs=False, phase="burn_in")
-        return state
-
-    states = jax.vmap(one)(
-        positions, jax.random.split(jax.random.PRNGKey(0), 4))
-    states, _, costs = sample_chain_fused(
-        sampler, states, jax.random.PRNGKey(1), 2, x, y,
-        batch_size=20, keep_every=2, block_chains=4,
-        state_dtype=jnp.float32, collect_positions=False,
-        multistep=True, interpret=True)
-    assert costs.shape == (4, 2)
-    assert np.isfinite(np.asarray(costs)).all()
-    assert int(states.step[0]) == 3 + 4
-    leaves = np.concatenate([
-        np.asarray(l).ravel()
-        for l in jax.tree_util.tree_leaves(states.position)])
-    assert np.isfinite(leaves).all()
-
-
-def test_multistep_sgnht_path_tiny():
-    """The SGNHT multi-step fused kernel end to end (interpret mode),
-    including the VMEM-resident thermostat threading."""
-    import jax.numpy as jnp
-
-    from bench import build_workload
-    from pysgmcmc_tpu.parallel.packed import sample_chain_fused
-    from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler
-
-    base, positions, _ = build_workload(n_chains=4, network="dense")
-    sampler = SGNHTSampler(
-        base.cost_fn, stepsize_schedule=1e-3,
-        scale_grad=base.scale_grad,
-        gaussian_prior_scale=base.gaussian_prior_scale)
-
-    x = np.random.RandomState(0).uniform(0, 1, (100, 1)).astype(np.float32)
-    from pysgmcmc_tpu.diagnostics.objective_functions import sinc
-
-    y = np.asarray(sinc(x), np.float32)
-    states = jax.vmap(sampler.init)(
-        positions, jax.random.split(jax.random.PRNGKey(0), 4))
-    states, _, costs = sample_chain_fused(
-        sampler, states, jax.random.PRNGKey(1), 2, x, y,
-        batch_size=20, keep_every=2, block_chains=4,
-        state_dtype=jnp.float32, collect_positions=False,
-        multistep=True, interpret=True)
-    assert costs.shape == (4, 2)
-    assert np.isfinite(np.asarray(costs)).all()
-    assert int(states.step[0]) == 4
-    xi = np.asarray(states.xi)
-    assert xi.shape == (4,) and np.isfinite(xi).all()
-
-
-def test_multistep_psgld_and_rsghmc_path_tiny():
-    """The pSGLD and RSGHMC multi-step fused kernels end to end
-    (interpret mode) — with these, every gradient-based sampler runs the
-    k-steps-per-launch VMEM-resident path."""
-    import jax.numpy as jnp
-
-    from bench import build_workload
-    from pysgmcmc_tpu.parallel.packed import sample_chain_fused
-    from pysgmcmc_tpu.samplers.psgld import PSGLDSampler
-    from pysgmcmc_tpu.samplers.relativistic_sghmc import (
-        RelativisticSGHMCSampler,
-    )
-
-    base, positions, _ = build_workload(n_chains=4, network="dense")
-    x = np.random.RandomState(0).uniform(0, 1, (100, 1)).astype(np.float32)
-    from pysgmcmc_tpu.diagnostics.objective_functions import sinc
-
-    y = np.asarray(sinc(x), np.float32)
-    for sampler in (
-        PSGLDSampler(
-            base.cost_fn, stepsize_schedule=1e-4,
-            scale_grad=base.scale_grad,
-            gaussian_prior_scale=base.gaussian_prior_scale),
-        RelativisticSGHMCSampler(
-            base.cost_fn, stepsize_schedule=1e-3,
-            gaussian_prior_scale=base.gaussian_prior_scale),
-    ):
-        states = jax.vmap(sampler.init)(
-            positions, jax.random.split(jax.random.PRNGKey(0), 4))
-        states, _, costs = sample_chain_fused(
-            sampler, states, jax.random.PRNGKey(1), 2, x, y,
-            batch_size=20, keep_every=2, block_chains=4,
-            state_dtype=jnp.float32, collect_positions=False,
-            multistep=True, interpret=True)
-        name = type(sampler).__name__
-        assert costs.shape == (4, 2), name
-        assert np.isfinite(np.asarray(costs)).all(), name
-        assert int(states.step[0]) == 4, name
-        leaves = np.concatenate([
-            np.asarray(l).ravel()
-            for l in jax.tree_util.tree_leaves(states.position)])
-        assert np.isfinite(leaves).all(), name
+    assert int(states.step[0]) == 3 + 2

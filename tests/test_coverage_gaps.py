@@ -1,5 +1,4 @@
-"""Final coverage-lane sweep: the FusedSGHMC xla backend and batch
-broadcasting, the fused-update Box-Muller odd-row branch and dim guard,
+"""Final coverage-lane sweep: FusedSGHMC runs and batch broadcasting,
 regression-model validation/PSGLD branches, gmm objective presets, the
 shuffled-batch default seed, and the SampleStore compile-from-source
 path."""
@@ -23,10 +22,6 @@ from pysgmcmc_tpu.models.bayesian_linear_regression import (
 from pysgmcmc_tpu.models.bayesian_logistic_regression import (
     BayesianLogisticRegression,
 )
-from pysgmcmc_tpu.ops.fused_update import (
-    fused_sghmc_update,
-    pad_dim,
-)
 from pysgmcmc_tpu.sampling import Sampler
 from pysgmcmc_tpu.samplers.fused import FusedSGHMC
 from pysgmcmc_tpu.utils import sample_store as sample_store_mod
@@ -49,14 +44,15 @@ def _stacked(n):
 
 
 def test_fused_sghmc_backend_validation():
-    with pytest.raises(ValueError, match="backend"):
-        FusedSGHMC(lambda p: 0.0, _template(), backend="cuda")
+    """The backend option went with the hand-written kernel."""
+    with pytest.raises(TypeError, match="backend"):
+        FusedSGHMC(lambda p: 0.0, _template(), backend="xla")
 
 
 def test_fused_sghmc_xla_backend_needs_key():
     fused = FusedSGHMC(
         lambda p: 0.5 * jnp.sum(p["w"] ** 2) + 0.5 * p["b"] ** 2,
-        _template(), backend="xla", burn_in_steps=2,
+        _template(), burn_in_steps=2,
     )
     state = fused.init(_stacked(4))
     with pytest.raises(ValueError, match="key"):
@@ -68,7 +64,7 @@ def test_fused_sghmc_xla_backend_runs():
         return 0.5 * jnp.sum(p["w"] ** 2) + 0.5 * p["b"] ** 2
 
     fused = FusedSGHMC(
-        cost_fn, _template(), backend="xla", burn_in_steps=3,
+        cost_fn, _template(), burn_in_steps=3,
         stepsize=0.01, compute_dtype=jnp.bfloat16,
     )
     state = fused.init(_stacked(4))
@@ -83,7 +79,7 @@ def test_fused_sghmc_shared_batches_broadcast():
         return 0.5 * jnp.sum((p["w"] - jnp.mean(batch)) ** 2) \
             + 0.5 * p["b"] ** 2
 
-    fused = FusedSGHMC(cost_fn, _template(), backend="xla", burn_in_steps=2)
+    fused = FusedSGHMC(cost_fn, _template(), burn_in_steps=2)
     state = fused.init(_stacked(4))
     state, costs = fused.run(
         state, jax.random.PRNGKey(2), 5,
@@ -92,34 +88,6 @@ def test_fused_sghmc_shared_batches_broadcast():
     )
     assert costs.shape == (4,)
     assert np.isfinite(np.asarray(costs)).all()
-
-
-#  fused_update kernel helpers ----------------------------------------------
-
-
-def test_fused_update_dim_guard():
-    theta = jnp.zeros((4, 130))  # not a multiple of the 128-lane tile
-    ones = jnp.ones_like(theta)
-    with pytest.raises(ValueError, match="multiple"):
-        fused_sghmc_update(
-            theta, ones, ones, ones, ones, ones, ones, 0.01,
-            jnp.asarray(True), jnp.asarray(0, jnp.int32), interpret=True,
-        )
-
-
-@pytest.mark.slow
-def test_fused_update_odd_chain_count_interpret():
-    """An odd chain count hits the non-dual-output Box-Muller branch."""
-    n, dim = 3, pad_dim(5)
-    theta = 0.1 * jnp.ones((n, dim))
-    ones = jnp.ones_like(theta)
-    zeros = jnp.zeros_like(theta)
-    out = fused_sghmc_update(
-        theta, zeros, ones, ones, ones, ones, 0.5 * ones, 0.01,
-        jnp.asarray(True), jnp.asarray(7, jnp.int32), interpret=True,
-    )
-    assert out[0].shape == (n, dim)
-    assert np.isfinite(np.asarray(out[0])).all()
 
 
 #  regression models ----------------------------------------------------------

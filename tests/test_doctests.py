@@ -22,10 +22,7 @@ import pysgmcmc_tpu.models.base_model
 import pysgmcmc_tpu.models.bayesian_linear_regression
 import pysgmcmc_tpu.models.bayesian_logistic_regression
 import pysgmcmc_tpu.models.bayesian_neural_network
-import pysgmcmc_tpu.ops.fused_step
-import pysgmcmc_tpu.ops.fused_update
 import pysgmcmc_tpu.ops.pairwise
-import pysgmcmc_tpu.ops.slim_update
 import pysgmcmc_tpu.ops.relativistic
 import pysgmcmc_tpu.ops.svgd_streaming
 import pysgmcmc_tpu.parallel.chains
@@ -44,6 +41,7 @@ import pysgmcmc_tpu.samplers.svgd
 import pysgmcmc_tpu.sampling
 import pysgmcmc_tpu.stepsize_schedules
 import pysgmcmc_tpu.utils.checkpoint
+import pysgmcmc_tpu.utils.device
 import pysgmcmc_tpu.utils.numeric
 import pysgmcmc_tpu.utils.profiling
 import pysgmcmc_tpu.utils.pytree
@@ -65,10 +63,7 @@ MODULES = [
     pysgmcmc_tpu.models.bayesian_linear_regression,
     pysgmcmc_tpu.models.bayesian_logistic_regression,
     pysgmcmc_tpu.models.bayesian_neural_network,
-    pysgmcmc_tpu.ops.fused_step,
-    pysgmcmc_tpu.ops.fused_update,
     pysgmcmc_tpu.ops.pairwise,
-    pysgmcmc_tpu.ops.slim_update,
     pysgmcmc_tpu.ops.relativistic,
     pysgmcmc_tpu.ops.svgd_streaming,
     pysgmcmc_tpu.parallel.chains,
@@ -87,6 +82,7 @@ MODULES = [
     pysgmcmc_tpu.sampling,
     pysgmcmc_tpu.stepsize_schedules,
     pysgmcmc_tpu.utils.checkpoint,
+    pysgmcmc_tpu.utils.device,
     pysgmcmc_tpu.utils.numeric,
     pysgmcmc_tpu.utils.profiling,
     pysgmcmc_tpu.utils.pytree,

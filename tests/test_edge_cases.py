@@ -1,4 +1,4 @@
-"""Edge-case coverage for containers, meshes, and kernel blocking."""
+"""Edge-case coverage for containers and meshes."""
 
 import jax
 import jax.numpy as jnp
@@ -6,18 +6,7 @@ import numpy as np
 import pytest
 
 from pysgmcmc_tpu.diagnostics.sample_chains import MultiTrace, PYSGMCMCTrace
-from pysgmcmc_tpu.ops.fused_update import _block_shape
 from pysgmcmc_tpu.parallel.mesh import chain_mesh
-
-
-def test_block_shape_divides_and_fits_budget():
-    for rows, cols in [(8192, 5376), (8, 128), (24, 256), (10, 128),
-                       (4096, 1024)]:
-        br, bc = _block_shape(rows, cols, n_buffers=13)
-        assert rows % br == 0
-        assert cols % bc == 0
-        assert bc % 128 == 0
-        assert br * bc * 4 * 13 <= 16 * 1024 * 1024
 
 
 def test_chain_mesh_too_many_devices():

@@ -156,31 +156,31 @@ def test_sample_chain_lanes_driver_validation():
     sghmc = SGHMCSampler(_cost, burn_in_steps=1)
     states = jax.vmap(sghmc.init)(
         jnp.zeros((4, 3)), jax.random.split(jax.random.PRNGKey(2), 4))
-    with pytest.raises(ValueError, match="backend"):
+    # the backend option went with the hand-written kernels
+    with pytest.raises(TypeError, match="backend"):
         sample_chain_lanes(
-            sghmc, states, jax.random.PRNGKey(3), 1, backend="cuda")
+            sghmc, states, jax.random.PRNGKey(3), 1, backend="xla")
 
 
-def test_burnin_chain_fused_rejects_non_adaptive():
-    from pysgmcmc_tpu.parallel.packed import burnin_chain_fused
+def test_burnin_chain_lanes_rejects_non_adaptive():
+    from pysgmcmc_tpu.parallel.packed import burnin_chain_lanes
     from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler
 
     sgnht = SGNHTSampler(_cost)
     states = jax.vmap(sgnht.init)(
         jnp.zeros((2, 3)), jax.random.split(jax.random.PRNGKey(0), 2))
     with pytest.raises(NotImplementedError, match="adaptive"):
-        burnin_chain_fused(
-            sgnht, states, jax.random.PRNGKey(1), 2,
-            np.zeros((50, 1), np.float32), np.zeros(50, np.float32))
+        burnin_chain_lanes(sgnht, states, jax.random.PRNGKey(1), 2)
 
 
-def test_burnin_chain_fused_zero_steps_noop():
-    from pysgmcmc_tpu.parallel.packed import burnin_chain_fused
+def test_burnin_chain_lanes_zero_steps_noop():
+    from pysgmcmc_tpu.parallel.packed import burnin_chain_lanes
 
     sghmc = SGHMCSampler(_cost, burn_in_steps=1)
     states = jax.vmap(sghmc.init)(
-        jnp.zeros((2, 3)), jax.random.split(jax.random.PRNGKey(0), 2))
-    out = burnin_chain_fused(
-        sghmc, states, jax.random.PRNGKey(1), 0,
-        np.zeros((50, 1), np.float32), np.zeros(50, np.float32))
-    assert out is states
+        jnp.ones((2, 3)), jax.random.split(jax.random.PRNGKey(0), 2))
+    out = burnin_chain_lanes(sghmc, states, jax.random.PRNGKey(1), 0,
+                             compute_dtype=None)
+    for a, b in zip(jax.tree_util.tree_leaves(states),
+                    jax.tree_util.tree_leaves(out)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
